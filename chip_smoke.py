@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""On-card smoke test of zstd_tpu_torch, the PyTorch/CUDA port.
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from zstd_tpu_torch/csrc/ with nvcc, holds each
+kernel against its plain version at the main path's shapes (exact equality:
+zstd is an exact codec), drives the level-1 encode of the 16 MiB corpus
+through both kernels, checks the frame against the CPU path's on a 1 MiB
+prefix, and prints one JSON line of kernel timings before its last line:
+
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+
+Without a CUDA device, or outside the repository, it exits non-zero and
+prints no result. Any failed check raises, so the exit code is then non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+N_BLOCK = 128 * 1024           # main path: 128 KiB blocks
+CORPUS_BYTES = 16 * 1024 * 1024
+PREFIX_BYTES = 1024 * 1024
+DEVICE = "cuda"
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Mean time of fn() on the card over reps launches, after one warm run."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def max_abs_err(a: tuple, b: tuple) -> int:
+    err = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"shape/dtype differ: {x.shape} {x.dtype} "
+                                 f"vs {y.shape} {y.dtype}")
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def frame_blocks(frame: bytes) -> int:
+    """Walk a frame's block headers (RFC 8878); returns the block count and
+    checks that the last block ends where the frame (and checksum) ends."""
+    fhd = frame[4]
+    single = bool(fhd & 0x20)
+    pos = 5 + (0 if single else 1) + (0, 1, 2, 4)[fhd & 3] + \
+        (1 if single else 0, 2, 4, 8)[fhd >> 6]
+    count = 0
+    while True:
+        bh = int.from_bytes(frame[pos:pos + 3], "little")
+        btype, bsize = (bh >> 1) & 3, bh >> 3
+        assert btype != 3, "reserved block type"
+        pos += 3 + (1 if btype == 1 else bsize)
+        count += 1
+        if bh & 1:
+            break
+    assert pos + (4 if fhd & 4 else 0) == len(frame), (pos, len(frame))
+    return count
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def profile_run(fn) -> dict:
+    """Run fn() once under torch.profiler: the host wall time, the device's
+    busy time (union of its kernel and copy intervals) and the device time
+    by kernel name, in ms. Busy time is 0 if the profiler saw no device."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for s, e, name in spans:
+        busy += max(e - max(s, end), 0)
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
+    return dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3, by_name=by_name)
+
+
+def main() -> int:
+    signal.alarm(1150)             # hard deadline: the default action exits
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    # by file: an installed package named `tests` can shadow the repo's
+    sys.path.insert(0, os.path.join(root, "tests"))
+    from bigcorpus import big_corpus
+    from zstd_tpu_torch import _kernels, pipeline
+    from zstd_tpu_torch.ops.fse_enc import fse_fields, fse_fields_plain
+    from zstd_tpu_torch.ops.match import (hash_positions, prev_same_bucket,
+                                          words_at)
+    from zstd_tpu_torch.ops.resolve import extract_compact, extract_plain
+    from zstd_tpu_torch.ops.seqextract import next_possible
+    from zstd_tpu_torch.params import get_cparams
+
+    dev = torch.device(DEVICE)
+    print(card_line(), flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    # ---- 1. build ------------------------------------------------------
+    t_build = _kernels.build_all()
+    print(f"build: {t_build:.1f} s", flush=True)
+    for src, log in _kernels.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  {src}: {line.strip()}")
+
+    corpus = big_corpus(CORPUS_BYTES)
+    arr = np.frombuffer(corpus, np.uint8)
+    cp = get_cparams(1, len(corpus))
+    block_size = min(1 << cp.window_log, N_BLOCK)
+    assert block_size == N_BLOCK, block_size
+    mls = min(max(cp.min_match, 4), 8)
+    seq_cap = block_size // 8
+
+    # ---- 2. extract: kernel vs plain on the compare rows ----------------
+    rng = np.random.default_rng(0)
+    n_blocks = len(corpus) // N_BLOCK          # four blocks across the corpus
+    rows = [arr[i * N_BLOCK:(i + 1) * N_BLOCK]
+            for i in (0, n_blocks // 3 + 1, 2 * n_blocks // 3 + 2, n_blocks - 1)]
+    rows.append(np.zeros(N_BLOCK, np.uint8))                  # one long match
+    rows.append(np.tile(rng.integers(0, 256, 128, dtype=np.uint8),
+                        N_BLOCK // 128))                       # period 128
+    rows.append(rng.integers(0, 256, N_BLOCK, dtype=np.uint8))  # random
+    rows.append(arr[5 * N_BLOCK:6 * N_BLOCK])                 # valid_len < N
+    cmp_blocks = torch.from_numpy(np.stack(rows)).to(dev)
+    cmp_lens = torch.full((len(rows),), N_BLOCK, dtype=torch.int32, device=dev)
+    cmp_lens[-1] = 100_003
+
+    def propose(blocks, lens):
+        w32 = words_at(blocks)
+        cands = prev_same_bucket(hash_positions(blocks, cp.hash_log, mls, w32),
+                                 lens)
+        return cands, next_possible(blocks, cands, w32)
+
+    cands, nxt = propose(cmp_blocks, cmp_lens)
+    got = extract_compact(cmp_blocks, cands, nxt, cmp_lens, seq_cap)
+    torch.cuda.synchronize()
+    want = extract_plain(cmp_blocks, cands, nxt, cmp_lens, seq_cap)
+    err_x = max_abs_err(got, want)
+    print(f"extract: nb_seq {got[4].tolist()} nb_lit {got[5].tolist()} "
+          f"zero-row ml {int(got[2][4, 0])} max_abs_err {err_x}", flush=True)
+    assert err_x == 0, "extract kernel disagrees with extract_plain"
+
+    # the main path's first batch, for timing
+    b0_np = arr[:32 * N_BLOCK].reshape(32, N_BLOCK)
+    b0 = torch.from_numpy(b0_np.copy()).to(dev)
+    b0_lens = torch.full((32,), N_BLOCK, dtype=torch.int32, device=dev)
+    b0_cands, b0_nxt = propose(b0, b0_lens)
+    x_args = (b0, b0_cands, b0_nxt, b0_lens, seq_cap)
+    x_ms = cuda_ms(lambda: extract_compact(*x_args))
+    x_plain_ms = host_ms(lambda: extract_plain(*x_args))
+    x_out = extract_compact(*x_args)
+    x_bound = nbytes(b0, b0_cands, b0_nxt, b0_lens, *x_out) / HBM_BYTES_PER_S * 1e3
+    err_x = max(err_x, max_abs_err(x_out, extract_plain(*x_args)))
+    assert err_x == 0, "extract kernel disagrees with extract_plain (batch 0)"
+    print(f"extract batch 0: kernel {x_ms:.3f} ms plain {x_plain_ms:.1f} ms "
+          f"bound {x_bound * 1e3:.1f} us", flush=True)
+
+    # ---- 3. FSE chain: kernel vs plain ------------------------------------
+    comp = pipeline.TorchCompressor(level=1, device=dev)
+
+    def fse_args(blocks, lens):
+        stats, resident = pipeline._analyze(blocks, lens, cp.hash_log, mls,
+                                            seq_cap)
+        _, blob, cap, *_ = comp._build_plans(
+            stats.cpu().numpy(), lens.cpu().numpy(), cp.strategy, block_size)
+        return pipeline.fse_inputs(resident, torch.from_numpy(blob).to(dev),
+                                   cap)
+
+    f_cmp = fse_args(cmp_blocks, cmp_lens)
+    err_f = max_abs_err(fse_fields(*f_cmp), fse_fields_plain(*f_cmp))
+    f_args = fse_args(b0, b0_lens)
+    f_out = fse_fields(*f_args)
+    err_f = max(err_f, max_abs_err(f_out, fse_fields_plain(*f_args)))
+    print(f"fse_chain: cap {f_args[0].shape[1]} nb_seq "
+          f"{f_args[6].tolist()[:8]}... max_abs_err {err_f}", flush=True)
+    assert err_f == 0, "fse_chain kernel disagrees with fse_fields_plain"
+    f_ms = cuda_ms(lambda: fse_fields(*f_args))
+    f_plain_ms = host_ms(lambda: fse_fields_plain(*f_args))
+    f_bound = nbytes(*f_args, *f_out) / HBM_BYTES_PER_S * 1e3
+    print(f"fse_chain batch 0: kernel {f_ms:.3f} ms plain {f_plain_ms:.1f} ms "
+          f"bound {f_bound * 1e3:.1f} us", flush=True)
+
+    # ---- 4. main path: level-1 encode of the 16 MiB corpus ---------------
+    pipeline.compress(corpus, level=1, device=dev)            # warm
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    times = []
+    t0 = time.perf_counter()
+    frame = pipeline.compress(corpus, level=1, device=dev)
+    times.append(time.perf_counter() - t0)
+    launches = dict(_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    frame2 = pipeline.compress(corpus, level=1, device=dev)
+    times.append(time.perf_counter() - t0)
+    assert frame2 == frame, "two runs gave different frames"
+    mbps = len(corpus) / min(times) / 1e6
+    print(f"main path: {len(corpus)} B -> {len(frame)} B, ratio "
+          f"{len(corpus) / len(frame):.4f}, {mbps:.2f} MB/s (best of 2: "
+          f"{times[0]:.3f} s, {times[1]:.3f} s), launches {launches}",
+          flush=True)
+    for k, v in launches.items():
+        assert v > 0, f"kernel {k} was not launched on the main path"
+    n_blocks = frame_blocks(frame)
+    assert n_blocks == len(corpus) // block_size, n_blocks
+
+    prefix = corpus[:PREFIX_BYTES]
+    f_gpu = pipeline.compress(prefix, level=1, checksum=True, device=dev)
+    f_cpu = pipeline.compress(prefix, level=1, checksum=True, device="cpu")
+    assert f_gpu == f_cpu, "cuda and cpu frames of the 1 MiB prefix differ"
+    print(f"1 MiB prefix: cuda frame == cpu frame ({len(f_gpu)} B)", flush=True)
+
+    stage_mbps = comp.device_stage_mbps(corpus)
+    print(f"device_stage_mbps: {stage_mbps:.2f}", flush=True)
+
+    # ---- 5. where the main path's time goes (one profiled run) ----------
+    # the host halves are timed by wrapping them on one compressor
+    host_s = {}
+
+    def timed(name, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    prof_comp = pipeline.TorchCompressor(level=1, device=dev)
+    for name in ("_build_plans", "_finalize"):
+        setattr(prof_comp, name, timed(name, getattr(prof_comp, name)))
+    prof = profile_run(lambda: prof_comp.compress(corpus))
+    print("host: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                               for k, v in host_s.items()), flush=True)
+    if prof["busy_ms"] > 0:
+        print(f"profile: wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['busy_ms']:.1f} ms, idle share "
+              f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}", flush=True)
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:12]
+        for name, ms in top:
+            print(f"  {ms:9.3f} ms  {name[:100]}")
+    else:
+        print("profile: the profiler recorded no device activity; device "
+              "busy time not measured", flush=True)
+
+    kernels = [
+        dict(name="extract", route="cuda",
+             source="zstd_tpu_torch/csrc/extract.cu",
+             replaces="zstd_tpu/ops/resolve_pallas.py:41",
+             launches=launches["extract"], max_abs_err=err_x,
+             ms=x_ms, plain_ms=x_plain_ms, bound_ms=x_bound,
+             bound_by="bytes", library_ms=None),
+        dict(name="fse_chain", route="cuda",
+             source="zstd_tpu_torch/csrc/fse_chain.cu",
+             replaces="zstd_tpu/ops/fse_enc.py:111",
+             launches=launches["fse_chain"], max_abs_err=err_f,
+             ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound,
+             bound_by="bytes", library_ms=None),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

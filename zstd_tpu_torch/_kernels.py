@@ -1,0 +1,110 @@
+"""Build and load the hand-written CUDA kernels in csrc/.
+
+Each csrc/*.cu is compiled on first use by its own nvcc process (all started
+together) into a shared library with a plain C interface under _build/, and
+loaded with ctypes. A library is rebuilt when its source changes (the
+source's hash is part of the file name). Nothing here runs at import time,
+so the package imports on machines without nvcc or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+SOURCES = ("extract.cu", "fse_chain.cu")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (every entry point returns cudaError_t)
+_SIGNATURES = {
+    "extract.cu": {"extract_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _P]},
+    "fse_chain.cu": {"fse_chain_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _P, _P, _P, _P, _I, _I, _P]},
+}
+
+# launch counts, one per kernel: each wrapper adds one where it launches its
+# kernel (and nowhere else), so a run can show which kernels it went through
+LAUNCHES = {"extract": 0, "fse_chain": 0}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}   # source -> nvcc's output (ptxas register use)
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(src: str) -> str:
+    with open(os.path.join(_CSRC, src), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD, f"{src[:-3]}-{digest}.so")
+
+
+def build_all() -> float:
+    """Compile every source that has no up-to-date library, one nvcc per
+    source, all in parallel. Returns the wall time spent (seconds)."""
+    t0 = time.time()
+    with _lock:
+        os.makedirs(_BUILD, exist_ok=True)
+        procs = []
+        for src in SOURCES:
+            out = _lib_path(src)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+            procs.append((src, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        failed = []
+        for src, out, tmp, p in procs:
+            log = p.communicate()[0].decode(errors="replace")
+            BUILD_LOG[src] = log
+            if p.returncode != 0:
+                failed.append(f"{src}:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.time() - t0
+
+
+def get(src: str) -> ctypes.CDLL:
+    """The loaded library of one csrc/ source, built on first use."""
+    lib = _libs.get(src)
+    if lib is not None:
+        return lib
+    build_all()
+    with _lock:
+        if src not in _libs:
+            lib = ctypes.CDLL(_lib_path(src))
+            for name, argtypes in _SIGNATURES[src].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[src] = lib
+    return _libs[src]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

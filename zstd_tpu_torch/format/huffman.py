@@ -1,0 +1,256 @@
+"""Huffman coding for literals, encoder half — exact RFC 8878 semantics.
+
+Copy of the Python branches of zstd_tpu/format/huffman.py: canonical tree
+construction with the 11-bit height limit (zstd's lib/compress/huf_compress.c
+HUF_sort:620, HUF_buildTree:681, HUF_setMaxHeight:376,
+HUF_buildCTableFromTree:730) and the tree description serialization
+(HUF_writeCTable_wksp:248, HUF_compressWeights:147).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..constants import HUF_WEIGHT_FSE_LOG_MAX, highbit32
+from ..errors import Corruption
+from . import fse
+
+HUF_TABLELOG_ABSOLUTEMAX = 12
+HUF_TABLELOG_DEFAULT = 11
+
+
+@dataclasses.dataclass
+class HufCTable:
+    table_log: int
+    max_symbol: int
+    nb_bits: np.ndarray  # int32[256]
+    value: np.ndarray    # int32[256] canonical code value
+
+
+def _huf_sort(count: np.ndarray, max_symbol: int) -> list[tuple[int, int]]:
+    """Symbols sorted by decreasing count; ties by increasing symbol value.
+
+    The reference's bucket sort (HUF_sort) is stable by symbol within exact
+    count buckets; we reproduce that ordering directly.
+    """
+    syms = [(int(count[s]), s) for s in range(max_symbol + 1)]
+    syms.sort(key=lambda t: (-t[0], t[1]))
+    return syms
+
+
+def _huf_build_tree(nodes: list[tuple[int, int]]) -> tuple[list[int], int]:
+    """Unlimited-depth Huffman tree over sorted leaves.
+
+    nodes: (count, symbol) sorted descending. Returns (nb_bits per leaf in
+    sorted order, non_null_rank). Mirrors HUF_buildTree's merge order exactly
+    (ties prefer the internal-node queue)."""
+    n_leaves = len(nodes)
+    non_null = n_leaves - 1
+    while non_null > 0 and nodes[non_null][0] == 0:
+        non_null -= 1
+    counts = [c for c, _ in nodes]
+
+    STARTNODE = 256
+    # Build arrays indexed like the reference: leaves 0..non_null, internal
+    # nodes STARTNODE.. ; a sentinel "huffNode0[0]" barrier is emulated by
+    # bounds checks below.
+    tree_count = {}
+    parent = {}
+    for i in range(non_null + 1):
+        tree_count[i] = counts[i]
+    node_nb = STARTNODE
+    low_s = non_null
+    node_root = node_nb + low_s - 1
+    low_n = node_nb
+    tree_count[node_nb] = tree_count[low_s] + tree_count[low_s - 1]
+    parent[low_s] = node_nb
+    parent[low_s - 1] = node_nb
+    node_nb += 1
+    low_s -= 2
+    for k in range(node_nb, node_root + 1):
+        tree_count[k] = 1 << 30
+
+    def pick():
+        nonlocal low_s, low_n
+        # huffNode0[0] barrier: when low_s < 0, treat as +inf
+        cs = tree_count[low_s] if low_s >= 0 else (1 << 31)
+        cn = tree_count[low_n]
+        if cs < cn:
+            low_s -= 1
+            return low_s + 1
+        low_n += 1
+        return low_n - 1
+
+    while node_nb <= node_root:
+        n1 = pick()
+        n2 = pick()
+        tree_count[node_nb] = tree_count[n1] + tree_count[n2]
+        parent[n1] = node_nb
+        parent[n2] = node_nb
+        node_nb += 1
+
+    nb_bits = {node_root: 0}
+    for k in range(node_root - 1, STARTNODE - 1, -1):
+        nb_bits[k] = nb_bits[parent[k]] + 1
+    leaf_bits = [0] * n_leaves
+    for i in range(non_null + 1):
+        leaf_bits[i] = nb_bits[parent[i]] + 1
+    return leaf_bits, non_null
+
+
+def _huf_set_max_height(nodes: list[tuple[int, int]], leaf_bits: list[int],
+                        non_null: int, target: int) -> int:
+    """Enforce the max code length; exact HUF_setMaxHeight algorithm."""
+    largest = leaf_bits[non_null]
+    if largest <= target:
+        return largest
+
+    base_cost = 1 << (largest - target)
+    total_cost = 0
+    n = non_null
+    while leaf_bits[n] > target:
+        total_cost += base_cost - (1 << (largest - leaf_bits[n]))
+        leaf_bits[n] = target
+        n -= 1
+    while leaf_bits[n] == target:
+        n -= 1
+    total_cost >>= (largest - target)
+
+    NO_SYMBOL = -1
+    rank_last = [NO_SYMBOL] * (HUF_TABLELOG_ABSOLUTEMAX + 2)
+    current_nb_bits = target
+    for pos in range(n, -1, -1):
+        if leaf_bits[pos] >= current_nb_bits:
+            continue
+        current_nb_bits = leaf_bits[pos]
+        rank_last[target - current_nb_bits] = pos
+
+    while total_cost > 0:
+        nb_dec = highbit32(total_cost) + 1
+        while nb_dec > 1:
+            high_pos = rank_last[nb_dec]
+            low_pos = rank_last[nb_dec - 1]
+            if high_pos == NO_SYMBOL:
+                nb_dec -= 1
+                continue
+            if low_pos == NO_SYMBOL:
+                break
+            high_total = nodes[high_pos][0]
+            low_total = 2 * nodes[low_pos][0]
+            if high_total <= low_total:
+                break
+            nb_dec -= 1
+        while nb_dec <= HUF_TABLELOG_ABSOLUTEMAX and rank_last[nb_dec] == NO_SYMBOL:
+            nb_dec += 1
+        total_cost -= 1 << (nb_dec - 1)
+        leaf_bits[rank_last[nb_dec]] += 1
+        if rank_last[nb_dec - 1] == NO_SYMBOL:
+            rank_last[nb_dec - 1] = rank_last[nb_dec]
+        if rank_last[nb_dec] == 0:
+            rank_last[nb_dec] = NO_SYMBOL
+        else:
+            rank_last[nb_dec] -= 1
+            if leaf_bits[rank_last[nb_dec]] != target - nb_dec:
+                rank_last[nb_dec] = NO_SYMBOL
+
+    while total_cost < 0:
+        if rank_last[1] == NO_SYMBOL:
+            while leaf_bits[n] == target:
+                n -= 1
+            leaf_bits[n + 1] -= 1
+            rank_last[1] = n + 1
+            total_cost += 1
+            continue
+        leaf_bits[rank_last[1] + 1] -= 1
+        rank_last[1] += 1
+        total_cost += 1
+
+    return target
+
+
+def build_huf_ctable(count: np.ndarray, max_symbol: int,
+                     max_nb_bits: int = HUF_TABLELOG_DEFAULT) -> HufCTable:
+    nodes = _huf_sort(count, max_symbol)
+    leaf_bits, non_null = _huf_build_tree(nodes)
+    max_nb_bits = _huf_set_max_height(nodes, leaf_bits, non_null, max_nb_bits)
+    if max_nb_bits > HUF_TABLELOG_ABSOLUTEMAX:
+        raise Corruption("huffman tree too deep")
+
+    nb_per_rank = [0] * (HUF_TABLELOG_ABSOLUTEMAX + 1)
+    for i in range(non_null + 1):
+        nb_per_rank[leaf_bits[i]] += 1
+    val_per_rank = [0] * (HUF_TABLELOG_ABSOLUTEMAX + 1)
+    mn = 0
+    for b in range(max_nb_bits, 0, -1):
+        val_per_rank[b] = mn
+        mn += nb_per_rank[b]
+        mn >>= 1
+
+    nb_bits = np.zeros(256, dtype=np.int32)
+    for i in range(non_null + 1):
+        _, sym = nodes[i]
+        nb_bits[sym] = leaf_bits[i]
+    value = np.zeros(256, dtype=np.int32)
+    vpr = list(val_per_rank)
+    for sym in range(max_symbol + 1):
+        b = int(nb_bits[sym])
+        if b:
+            value[sym] = vpr[b]
+            vpr[b] += 1
+    return HufCTable(max_nb_bits, max_symbol, nb_bits, value)
+
+
+def huf_optimal_table_log(max_table_log: int, src_size: int, max_symbol: int) -> int:
+    """Cheap path of HUF_optimalTableLog (FSE heuristic, minus=1)."""
+    return fse.optimal_table_log(max_table_log, src_size, max_symbol, minus=1)
+
+
+def write_tree_description(ct: HufCTable) -> bytes:
+    """HUF_writeCTable_wksp: FSE-compress the weights; 4-bit direct fallback."""
+    max_symbol = ct.max_symbol
+    huff_log = ct.table_log
+    bits_to_weight = [0] * (huff_log + 1)
+    for n in range(1, huff_log + 1):
+        bits_to_weight[n] = huff_log + 1 - n
+    weights = bytes(bits_to_weight[int(ct.nb_bits[n])] for n in range(max_symbol))
+
+    h = _compress_weights(weights)
+    if h is not None and 1 < len(h) < max_symbol // 2:
+        return bytes([len(h)]) + h
+
+    if max_symbol > 128:
+        raise Corruption("cannot serialize huffman tree (>128 symbols, weights incompressible)")
+    out = bytearray([128 + (max_symbol - 1)])
+    w = weights + b"\x00"
+    for n in range(0, max_symbol, 2):
+        out.append((w[n] << 4) + w[n + 1])
+    return bytes(out)
+
+
+def _compress_weights(weights: bytes) -> bytes | None:
+    """HUF_compressWeights: FSE with tableLog<=6 over weight symbols <=12."""
+    wt_size = len(weights)
+    if wt_size <= 1:
+        return None
+    count = np.bincount(np.frombuffer(weights, dtype=np.uint8),
+                        minlength=HUF_TABLELOG_ABSOLUTEMAX + 1).astype(np.int64)
+    max_symbol = int(np.max(np.frombuffer(weights, dtype=np.uint8)))
+    max_count = int(count.max())
+    if max_count == wt_size:
+        return None  # single symbol: reference signals RLE via size 1; direct repr wins anyway
+    if max_count == 1:
+        return None  # not compressible
+    table_log = fse.optimal_table_log(HUF_WEIGHT_FSE_LOG_MAX, wt_size, max_symbol)
+    try:
+        norm = fse.normalize_count(count, table_log, wt_size, max_symbol,
+                                   use_low_prob_count=False)
+    except Exception:
+        return None
+    header = fse.write_ncount(norm, max_symbol, table_log)
+    ctable = fse.build_ctable(norm, max_symbol, table_log)
+    payload = fse.fse_compress_2state(weights, ctable)
+    if not payload:
+        return None
+    return header + payload

@@ -1,0 +1,273 @@
+"""Sequences section header: encoding-type selection and table builds.
+
+Copy of the Python branches of zstd_tpu/format/sequences.py that the device
+pipeline's host planning uses. Parity targets: zstd's
+lib/compress/zstd_compress_sequences.c (ZSTD_selectEncodingType,
+ZSTD_buildCTable, ZSTD_fseBitCost) and lib/compress/zstd_compress.c
+ZSTD_buildSequencesStatistics:2757 (LL table, then OF, then ML;
+set_compressed decrements the last sequence's code count before
+normalization).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+
+from ..constants import (
+    LL_DEFAULT_DIST, LL_DEFAULT_LOG, LL_FSE_LOG,
+    MAX_LL_CODE, MAX_ML_CODE,
+    ML_DEFAULT_DIST, ML_DEFAULT_LOG, ML_FSE_LOG,
+    MODE_FSE, MODE_PREDEFINED, MODE_REPEAT, MODE_RLE,
+    OF_DEFAULT_DIST, OF_DEFAULT_LOG, OF_FSE_LOG,
+)
+from . import fse
+
+LONGNBSEQ = 0x7F00
+DEFAULT_MAX_OFF = 28  # largest offset code in the predefined distribution
+
+# floor(256*log2(256/i)); exact-integer recomputation of the reference's
+# kInverseProbabilityLog256 table (zstd_compress_sequences.c:21).
+_T256 = 256 ** 256
+K_INV_PROB_LOG256 = np.array(
+    [0] + [(_T256 // (i ** 256)).bit_length() - 1 for i in range(1, 256)],
+    dtype=np.int64)
+
+
+class FSERepeat:
+    NONE = 0
+    CHECK = 1
+    VALID = 2
+
+
+def _use_low_prob_count(nb_seq: int) -> bool:
+    return nb_seq >= 2048
+
+
+def _entropy_cost(count: np.ndarray, mx: int, total: int) -> int:
+    c = np.asarray(count[: mx + 1], dtype=np.int64)
+    norm = (256 * c) // total
+    norm = np.where((c != 0) & (norm == 0), 1, norm)
+    return int(np.dot(c, K_INV_PROB_LOG256[norm])) >> 8
+
+
+def _cross_entropy_cost(norm: np.ndarray, accuracy_log: int,
+                        count: np.ndarray, mx: int) -> int:
+    shift = 8 - accuracy_log
+    na = np.asarray(norm[: mx + 1], dtype=np.int64)
+    norm256 = np.where(na == -1, 1, na) << shift
+    c = np.asarray(count[: mx + 1], dtype=np.int64)
+    return int(np.dot(c, K_INV_PROB_LOG256[norm256])) >> 8
+
+
+def _fse_bit_cost(ctable: fse.CTable, count: np.ndarray, mx: int) -> int | None:
+    """ZSTD_fseBitCost; None signals 'table cannot represent count'."""
+    k_acc = 8
+    table_log = ctable.table_log
+    if ctable.max_symbol < mx:
+        return None
+    c = np.asarray(count[: mx + 1], dtype=np.int64)
+    used = c != 0
+    # FSE_bitCost: deltaNbBits-based fractional bit cost, vectorized
+    delta = np.asarray(ctable.delta_nb_bits[: mx + 1], dtype=np.int64)
+    min_nb_bits = delta >> 16  # nbBits when state is at max
+    if np.any(used & (min_nb_bits + 1 > table_log)):
+        return None
+    table_size = 1 << table_log
+    threshold = (min_nb_bits + 1) << 16
+    normalized_delta = ((threshold - (delta + table_size)) << k_acc) >> table_log
+    bit_cost = (min_nb_bits << k_acc) + normalized_delta
+    if np.any(used & (bit_cost >= ((table_log + 1) << k_acc))):
+        return None
+    return int(np.dot(c, np.where(used, bit_cost, 0))) >> k_acc
+
+
+def _ncount_cost(count: np.ndarray, mx: int, nb_seq: int, fse_log: int) -> int:
+    table_log = fse.optimal_table_log(fse_log, nb_seq, mx)
+    norm = fse.normalize_count(count, table_log, nb_seq, mx,
+                               _use_low_prob_count(nb_seq))
+    return len(fse.write_ncount(norm, mx, table_log))
+
+
+def select_encoding_type(repeat_mode: int, count: np.ndarray, mx: int,
+                         most_frequent: int, nb_seq: int, fse_log: int,
+                         prev_ctable: fse.CTable | None,
+                         default_norm: np.ndarray, default_norm_log: int,
+                         is_default_allowed: bool, strategy: int
+                         ) -> tuple[int, int]:
+    """Returns (mode, new_repeat_mode)."""
+    if most_frequent == nb_seq:
+        if is_default_allowed and nb_seq <= 2:
+            return MODE_PREDEFINED, FSERepeat.NONE
+        return MODE_RLE, FSERepeat.NONE
+    ZSTD_LAZY = 5
+    if strategy < ZSTD_LAZY:
+        if is_default_allowed:
+            static_fse_nbseq_max = 1000
+            mult = 10 - strategy
+            dynamic_fse_nbseq_min = ((1 << default_norm_log) * mult) >> 3
+            if repeat_mode == FSERepeat.VALID and nb_seq < static_fse_nbseq_max:
+                return MODE_REPEAT, repeat_mode
+            if (nb_seq < dynamic_fse_nbseq_min
+                    or most_frequent < (nb_seq >> (default_norm_log - 1))):
+                return MODE_PREDEFINED, FSERepeat.NONE
+    else:
+        basic_cost = (_cross_entropy_cost(default_norm, default_norm_log, count, mx)
+                      if is_default_allowed else None)
+        repeat_cost = (_fse_bit_cost(prev_ctable, count, mx)
+                       if (repeat_mode != FSERepeat.NONE and prev_ctable is not None)
+                       else None)
+        ncount_cost = _ncount_cost(count, mx, nb_seq, fse_log)
+        compressed_cost = (ncount_cost << 3) + _entropy_cost(count, mx, nb_seq)
+        inf = 1 << 62
+        bc = basic_cost if basic_cost is not None else inf
+        rc = repeat_cost if repeat_cost is not None else inf
+        if bc <= rc and bc <= compressed_cost:
+            return MODE_PREDEFINED, FSERepeat.NONE
+        if rc <= compressed_cost:
+            return MODE_REPEAT, repeat_mode
+    return MODE_FSE, FSERepeat.CHECK
+
+
+@functools.lru_cache(maxsize=None)
+def _predef_ctable_cached(default_max: int, default_norm_log: int) -> fse.CTable:
+    """The three predefined tables are constants — build each once per
+    process (the reference keeps them static in zstd_internal.h)."""
+    norm = {(MAX_LL_CODE, LL_DEFAULT_LOG): LL_DEFAULT_DIST,
+            (DEFAULT_MAX_OFF, OF_DEFAULT_LOG): OF_DEFAULT_DIST,
+            (MAX_ML_CODE, ML_DEFAULT_LOG): ML_DEFAULT_DIST}[
+        (default_max, default_norm_log)].astype(np.int32)
+    return fse.build_ctable(norm, default_max, default_norm_log)
+
+
+@functools.lru_cache(maxsize=128)
+def _rle_ctable_cached(mx: int) -> fse.CTable:
+    return fse.build_ctable_rle(mx)
+
+
+def build_seq_ctable(mode: int, count: np.ndarray, mx: int,
+                     last_code: int, nb_seq: int, fse_log: int,
+                     default_norm: np.ndarray, default_norm_log: int,
+                     default_max: int, prev_ctable: fse.CTable | None
+                     ) -> tuple[fse.CTable, bytes]:
+    """ZSTD_buildCTable: returns (ctable, serialized table description).
+    last_code: code of the final sequence (its count is decremented before
+    normalization since the init state carries it). In RLE mode all codes
+    equal mx."""
+    if mode == MODE_RLE:
+        return _rle_ctable_cached(mx), bytes([mx])
+    if mode == MODE_REPEAT:
+        assert prev_ctable is not None
+        return prev_ctable, b""
+    if mode == MODE_PREDEFINED:
+        try:
+            return _predef_ctable_cached(default_max, default_norm_log), b""
+        except KeyError:  # non-standard default table: build directly
+            norm = default_norm.astype(np.int32)
+            return fse.build_ctable(norm, default_max, default_norm_log), b""
+    assert mode == MODE_FSE
+    table_log = fse.optimal_table_log(fse_log, nb_seq, mx)
+    cnt = count.copy()
+    nb_seq_1 = nb_seq
+    if cnt[last_code] > 1:
+        cnt[last_code] -= 1
+        nb_seq_1 -= 1
+    norm = fse.normalize_count(cnt, table_log, nb_seq_1, mx,
+                               _use_low_prob_count(nb_seq_1))
+    header = fse.write_ncount(norm, mx, table_log)
+    return fse.build_ctable(norm, mx, table_log), header
+
+
+@dataclasses.dataclass
+class FseEntropyState:
+    """Per-frame carried FSE tables + repeat modes (ZSTD_fseCTables_t analog)."""
+    ct_ll: fse.CTable | None = None
+    ct_of: fse.CTable | None = None
+    ct_ml: fse.CTable | None = None
+    ll_repeat: int = FSERepeat.NONE
+    of_repeat: int = FSERepeat.NONE
+    ml_repeat: int = FSERepeat.NONE
+
+    def copy(self) -> "FseEntropyState":
+        return FseEntropyState(self.ct_ll, self.ct_of, self.ct_ml,
+                               self.ll_repeat, self.of_repeat, self.ml_repeat)
+
+
+def write_nbseq_header(n: int) -> bytes:
+    out = bytearray()
+    if n < 128:
+        out.append(n)
+    elif n < LONGNBSEQ:
+        out.append((n >> 8) + 0x80)
+        out.append(n & 0xFF)
+    else:
+        out.append(0xFF)
+        out += (n - LONGNBSEQ).to_bytes(2, "little")
+    return bytes(out)
+
+
+def build_sequences_header_from_hists(
+        ll_hist: np.ndarray, of_hist: np.ndarray, ml_hist: np.ndarray,
+        last_codes: tuple[int, int, int], nb_seq: int,
+        prev: FseEntropyState, strategy: int
+) -> tuple[bytes, FseEntropyState, int]:
+    """Header+tables (no bitstream): returns (bytes, next state,
+    last_count_size). Takes only histograms + the last sequence's codes so the
+    device pipeline never needs the per-sequence code arrays on host.
+    last_codes = (ll, of, ml) codes of the final sequence."""
+    out = bytearray(write_nbseq_header(nb_seq))
+    nxt = prev.copy()
+    if nb_seq == 0:
+        return bytes(out), nxt, 0
+    n = nb_seq
+    last_count_size = 0
+
+    ll_last, of_last, ml_last = last_codes
+
+    # LL
+    cnt = ll_hist.astype(np.int64)
+    mx = int(np.nonzero(cnt)[0][-1])
+    most = int(cnt.max())
+    ll_mode, nxt.ll_repeat = select_encoding_type(
+        prev.ll_repeat, cnt, mx, most, n, LL_FSE_LOG, prev.ct_ll,
+        LL_DEFAULT_DIST, LL_DEFAULT_LOG, True, strategy)
+    nxt.ct_ll, ll_hdr = build_seq_ctable(
+        ll_mode, cnt, mx, ll_last, n, LL_FSE_LOG,
+        LL_DEFAULT_DIST, LL_DEFAULT_LOG, MAX_LL_CODE, prev.ct_ll)
+    if ll_mode == MODE_FSE:
+        last_count_size = len(ll_hdr)
+
+    # OF
+    cnt_of = of_hist.astype(np.int64)
+    mx_of = int(np.nonzero(cnt_of)[0][-1])
+    most_of = int(cnt_of.max())
+    default_allowed = mx_of <= DEFAULT_MAX_OFF
+    of_mode, nxt.of_repeat = select_encoding_type(
+        prev.of_repeat, cnt_of, mx_of, most_of, n, OF_FSE_LOG, prev.ct_of,
+        OF_DEFAULT_DIST, OF_DEFAULT_LOG, default_allowed, strategy)
+    nxt.ct_of, of_hdr = build_seq_ctable(
+        of_mode, cnt_of, mx_of, of_last, n, OF_FSE_LOG,
+        OF_DEFAULT_DIST, OF_DEFAULT_LOG, DEFAULT_MAX_OFF, prev.ct_of)
+    if of_mode == MODE_FSE:
+        last_count_size = len(of_hdr)
+
+    # ML
+    cnt_ml = ml_hist.astype(np.int64)
+    mx_ml = int(np.nonzero(cnt_ml)[0][-1])
+    most_ml = int(cnt_ml.max())
+    ml_mode, nxt.ml_repeat = select_encoding_type(
+        prev.ml_repeat, cnt_ml, mx_ml, most_ml, n, ML_FSE_LOG, prev.ct_ml,
+        ML_DEFAULT_DIST, ML_DEFAULT_LOG, True, strategy)
+    nxt.ct_ml, ml_hdr = build_seq_ctable(
+        ml_mode, cnt_ml, mx_ml, ml_last, n, ML_FSE_LOG,
+        ML_DEFAULT_DIST, ML_DEFAULT_LOG, MAX_ML_CODE, prev.ct_ml)
+    if ml_mode == MODE_FSE:
+        last_count_size = len(ml_hdr)
+
+    out.append((ll_mode << 6) + (of_mode << 4) + (ml_mode << 2))
+    out += ll_hdr
+    out += of_hdr
+    out += ml_hdr
+    return bytes(out), nxt, last_count_size

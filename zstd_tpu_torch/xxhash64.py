@@ -1,0 +1,78 @@
+"""XXH64 content checksum (frame checksum = low 32 bits of XXH64, seed 0).
+
+Copy of the pure-Python branch of zstd_tpu/xxhash64.py (the port carries no C
+library). Bit-exact with zstd's vendored lib/common/xxhash.h. It runs at a
+few MB/s, so large frames are best made with checksum=False.
+"""
+
+from __future__ import annotations
+
+_P1 = 11400714785074694791
+_P2 = 14029467366897019727
+_P3 = 1609587929392839161
+_P4 = 9650029242287828579
+_P5 = 2870177450012600261
+_M = (1 << 64) - 1
+
+
+def _rotl(v: int, r: int) -> int:
+    return ((v << r) | (v >> (64 - r))) & _M
+
+
+def _round(acc: int, lane: int) -> int:
+    acc = (acc + lane * _P2) & _M
+    return (_rotl(acc, 31) * _P1) & _M
+
+
+def _merge(acc: int, val: int) -> int:
+    acc ^= _round(0, val)
+    return (acc * _P1 + _P4) & _M
+
+
+def _xxh64_py(data: bytes, seed: int = 0) -> int:
+    n = len(data)
+    p = 0
+    if n >= 32:
+        v1 = (seed + _P1 + _P2) & _M
+        v2 = (seed + _P2) & _M
+        v3 = seed & _M
+        v4 = (seed - _P1) & _M
+        limit = n - 32
+        while p <= limit:
+            v1 = _round(v1, int.from_bytes(data[p:p + 8], "little")); p += 8
+            v2 = _round(v2, int.from_bytes(data[p:p + 8], "little")); p += 8
+            v3 = _round(v3, int.from_bytes(data[p:p + 8], "little")); p += 8
+            v4 = _round(v4, int.from_bytes(data[p:p + 8], "little")); p += 8
+        h = (_rotl(v1, 1) + _rotl(v2, 7) + _rotl(v3, 12) + _rotl(v4, 18)) & _M
+        h = _merge(h, v1)
+        h = _merge(h, v2)
+        h = _merge(h, v3)
+        h = _merge(h, v4)
+    else:
+        h = (seed + _P5) & _M
+
+    h = (h + n) & _M
+    while p + 8 <= n:
+        h ^= _round(0, int.from_bytes(data[p:p + 8], "little"))
+        h = (_rotl(h, 27) * _P1 + _P4) & _M
+        p += 8
+    if p + 4 <= n:
+        h ^= (int.from_bytes(data[p:p + 4], "little") * _P1) & _M
+        h = (_rotl(h, 23) * _P2 + _P3) & _M
+        p += 4
+    while p < n:
+        h ^= (data[p] * _P5) & _M
+        h = (_rotl(h, 11) * _P1) & _M
+        p += 1
+
+    h ^= h >> 33
+    h = (h * _P2) & _M
+    h ^= h >> 29
+    h = (h * _P3) & _M
+    h ^= h >> 32
+    return h
+
+
+def content_checksum(data: bytes) -> int:
+    """Frame Content_Checksum: low 32 bits of XXH64(data, 0)."""
+    return _xxh64_py(bytes(data), 0) & 0xFFFFFFFF
