@@ -94,6 +94,21 @@ def frame_blocks(frame: bytes) -> int:
     return count
 
 
+def print_walk(walk, nb_seq) -> None:
+    """The extract kernel's counts per row (extract_compact_stats): the
+    walk's steps and repair, and the SM cycles of the row and of the longest
+    warp in each phase."""
+    w = walk.cpu().tolist()
+    for i, (st, rep, rnd, tot, cta, spec, fix, emit) in enumerate(w):
+        print(f"  row {i}: longest segment {st} steps, repair {rep} steps in "
+              f"{rnd} rounds, {tot} matches, nb_seq {int(nb_seq[i])}; cycles "
+              f"{cta} (longest warp: speculate {spec}, repair {fix}, emit "
+              f"{emit})")
+    slow = max(w, key=lambda r: r[4])
+    print(f"  slowest row: {slow[4]} cycles; longest warp: speculate "
+          f"{slow[5]}, repair {slow[6]}, emit {slow[7]}", flush=True)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -138,7 +153,9 @@ def main() -> int:
     from zstd_tpu_torch.ops.fse_enc import fse_fields, fse_fields_plain
     from zstd_tpu_torch.ops.match import (hash_positions, prev_same_bucket,
                                           words_at)
-    from zstd_tpu_torch.ops.resolve import extract_compact, extract_plain
+    from zstd_tpu_torch.ops.resolve import (extract_compact,
+                                            extract_compact_stats,
+                                            extract_plain)
     from zstd_tpu_torch.ops.seqextract import next_possible
     from zstd_tpu_torch.params import get_cparams
 
@@ -173,9 +190,22 @@ def main() -> int:
                         N_BLOCK // 128))                       # period 128
     rows.append(rng.integers(0, 256, N_BLOCK, dtype=np.uint8))  # random
     rows.append(arr[5 * N_BLOCK:6 * N_BLOCK])                 # valid_len < N
+    # mls-byte tokens from a small dictionary, their first bytes distinct:
+    # every token starts a sequence (about one per 7.5 bytes at mls 7), so the
+    # walk reaches cap = 16,384
+    tokens = rng.integers(0, 256, (16, mls), dtype=np.uint8)
+    tokens[:, 0] = rng.permutation(256)[:16]
+    units = tokens[rng.integers(0, 16, N_BLOCK // mls + 1)]
+    rows.append(units.reshape(-1)[:N_BLOCK])
+    # random bytes with zero runs that start inside 4,096-byte segments and
+    # span several of them, the last one to the end of the row
+    runs = rng.integers(0, 256, N_BLOCK, dtype=np.uint8)
+    for a, z in ((5000, 30000), (70001, 71500), (100500, N_BLOCK)):
+        runs[a:z] = 0
+    rows.append(runs)
     cmp_blocks = torch.from_numpy(np.stack(rows)).to(dev)
     cmp_lens = torch.full((len(rows),), N_BLOCK, dtype=torch.int32, device=dev)
-    cmp_lens[-1] = 100_003
+    cmp_lens[7] = 100_003
 
     def propose(blocks, lens):
         w32 = words_at(blocks)
@@ -184,13 +214,16 @@ def main() -> int:
         return cands, next_possible(blocks, cands, w32)
 
     cands, nxt = propose(cmp_blocks, cmp_lens)
-    got = extract_compact(cmp_blocks, cands, nxt, cmp_lens, seq_cap)
+    got, walk = extract_compact_stats(cmp_blocks, cands, nxt, cmp_lens,
+                                      seq_cap)
     torch.cuda.synchronize()
     want = extract_plain(cmp_blocks, cands, nxt, cmp_lens, seq_cap)
     err_x = max_abs_err(got, want)
     print(f"extract: nb_seq {got[4].tolist()} nb_lit {got[5].tolist()} "
           f"zero-row ml {int(got[2][4, 0])} max_abs_err {err_x}", flush=True)
+    print_walk(walk, got[4])
     assert err_x == 0, "extract kernel disagrees with extract_plain"
+    assert int(got[4][8]) == seq_cap, "the token row should reach the cap"
 
     # the main path's first batch, for timing
     b0_np = arr[:32 * N_BLOCK].reshape(32, N_BLOCK)
@@ -200,7 +233,9 @@ def main() -> int:
     x_args = (b0, b0_cands, b0_nxt, b0_lens, seq_cap)
     x_ms = cuda_ms(lambda: extract_compact(*x_args))
     x_plain_ms = host_ms(lambda: extract_plain(*x_args))
-    x_out = extract_compact(*x_args)
+    x_out, x_walk = extract_compact_stats(*x_args)
+    print("extract batch 0 walk:")
+    print_walk(x_walk, x_out[4])
     x_bound = nbytes(b0, b0_cands, b0_nxt, b0_lens, *x_out) / HBM_BYTES_PER_S * 1e3
     err_x = max(err_x, max_abs_err(x_out, extract_plain(*x_args)))
     assert err_x == 0, "extract kernel disagrees with extract_plain (batch 0)"
@@ -218,7 +253,7 @@ def main() -> int:
         return pipeline.fse_inputs(resident, torch.from_numpy(blob).to(dev),
                                    cap)
 
-    f_cmp = fse_args(cmp_blocks, cmp_lens)
+    f_cmp = fse_args(cmp_blocks[:8], cmp_lens[:8])
     err_f = max_abs_err(fse_fields(*f_cmp), fse_fields_plain(*f_cmp))
     f_args = fse_args(b0, b0_lens)
     f_out = fse_fields(*f_args)

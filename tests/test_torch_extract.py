@@ -4,8 +4,9 @@ The JAX side is extract_batch_pallas with the Pallas kernel in interpret
 mode; a spy on its extract_compact records the candidate and jump tables it
 hands the kernel, so the port's propose ops and its plain scan
 (extract_plain, what the CUDA kernel computes) are each held to their JAX
-counterpart on the same rows. zstd is an exact codec: every comparison is
-exact equality.
+counterpart on the same rows. A Python model of the CUDA kernel's
+segment-parallel walk (speculate, repair, emit) is held to extract_plain.
+zstd is an exact codec: every comparison is exact equality.
 """
 
 import jax
@@ -15,10 +16,12 @@ import pytest
 import torch
 
 from tests.conftest import gen_mixed, gen_text
+from tests.walkmodel import propose_np, segment_walk
 from zstd_tpu.ops import match as jmatch
 from zstd_tpu.ops import resolve_pallas, seqextract
 from zstd_tpu_torch.ops import match as tmatch
-from zstd_tpu_torch.ops.resolve import extract_compact, extract_plain
+from zstd_tpu_torch.ops.resolve import (_lcp, extract_compact,
+                                        extract_compact_stats, extract_plain)
 from zstd_tpu_torch.ops.seqextract import extract_batch, next_possible
 
 N = 8192
@@ -147,9 +150,84 @@ def test_extract_compact_takes_plain_version_on_cpu():
         assert torch.equal(g, w)
 
 
+def test_extract_compact_stats_needs_the_kernel():
+    blocks = torch.zeros((1, 64), dtype=torch.uint8)
+    cands = torch.full((1, 64), -1, dtype=torch.int32)
+    lens = torch.full((1,), 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        extract_compact_stats(blocks, cands, cands, lens, 8)
+
+
 def test_extract_compact_rejects_other_devices():
     meta = torch.empty((1, 64), dtype=torch.uint8, device="meta")
     cands = torch.empty((1, 64), dtype=torch.int32, device="meta")
     lens = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         extract_compact(meta, cands, cands, lens, 8)
+
+
+# ---- the segment-parallel walk of csrc/extract.cu (tests/walkmodel.py) ----
+
+def _long_run_rows():
+    """Random rows with zero runs that start in the middle of a segment and
+    cover several segments (at S = 7 and 32), one of them running to the end
+    of the row, and one row whose valid length cuts a run short."""
+    rng = np.random.default_rng(17)
+    rows = rng.integers(0, 256, (3, N), dtype=np.uint8)
+    rows[0, 1000:3000] = 0
+    rows[0, 5500:5700] = 0
+    rows[1, 4321:] = 0
+    rows[2, 777:6001] = 0
+    return rows, np.array([N, N, 6000], np.int32), 12, 6
+
+
+MODEL_CASES = {**CASES, "long_runs": _long_run_rows}
+
+
+@pytest.mark.parametrize("S", [1, 2, 7, 32, 1024])
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_segment_walk_model_matches_extract_plain(case, S):
+    blocks, lens, hash_log, mls = MODEL_CASES[case]()
+    cands, nxt = propose_np(blocks, lens, hash_log, mls)
+    want = extract_plain(torch.from_numpy(blocks.copy()),
+                         torch.from_numpy(cands), torch.from_numpy(nxt),
+                         torch.from_numpy(lens), CAP)
+    want = [w.numpy() for w in want]
+    rounds = []
+    for b in range(len(blocks)):
+        ll, off, ml, lits, stats = segment_walk(
+            blocks[b].tobytes(), cands[b].tolist(), nxt[b].tolist(),
+            int(lens[b]), CAP, S)
+        k = want[4][b]
+        assert len(ll) == k, (b, len(ll), k)
+        np.testing.assert_array_equal(ll, want[0][b, :k])
+        np.testing.assert_array_equal(off, want[1][b, :k])
+        np.testing.assert_array_equal(ml, want[2][b, :k])
+        assert len(lits) == want[5][b]
+        assert lits == want[3][b, :len(lits)].tobytes()
+        rounds.append(stats[2])
+    if case == "overflow":
+        assert list(want[4][:2]) == [CAP, CAP]
+    if case == "seeds" and S == 1024:   # 8-byte segments: chains meet late
+        assert max(rounds) > 2
+
+
+@pytest.mark.parametrize("case", sorted(MODEL_CASES))
+def test_jump_table_reduces_walk_to_one_step_per_match(case):
+    """On the serial scan's own path: ip matches iff nxt[ip] == ip, and a
+    miss jumps straight to nxt[ip]; so the walk is p -> m = nxt[p] -> m + l."""
+    blocks, lens, hash_log, mls = MODEL_CASES[case]()
+    cands, nxt = propose_np(blocks, lens, hash_log, mls)
+    for b in range(len(blocks)):
+        buf, cd, nx = blocks[b].tobytes(), cands[b], nxt[b]
+        vl = int(lens[b])
+        ip = 0
+        while ip < vl - 8:
+            c = int(cd[ip])
+            l = _lcp(buf, ip, c, vl - ip) if c >= 0 else 0
+            assert (l >= 4) == (nx[ip] == ip), (b, ip)
+            if l >= 4:
+                ip += l
+            else:
+                assert max(int(nx[ip + 1]), ip + 1) == nx[ip]
+                ip = int(nx[ip])

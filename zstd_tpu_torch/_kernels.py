@@ -26,10 +26,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argtypes (every entry point returns cudaError_t)
+# C entry points: name -> argtypes (each returns an int: a cudaError_t for
+# the launches, a size in bytes for the others)
 _SIGNATURES = {
     "extract.cu": {"extract_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _P]},
+                                      _P, _P, _I, _I, _I, _P],
+                   "extract_scratch_bytes": [_I],
+                   "extract_smem_bytes": [_I]},
     "fse_chain.cu": {"fse_chain_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _P, _P, _P, _I, _I, _P]},
 }

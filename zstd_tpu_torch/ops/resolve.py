@@ -17,6 +17,9 @@ nb_lit), nb_seq i32[B], nb_lit i32[B].
 
 `extract_compact` launches csrc/extract.cu for CUDA tensors and runs
 `extract_plain`, the same scan written once in Python, for CPU tensors.
+The kernel cuts each row's chain into segments walked in parallel and
+repaired where a segment's speculative start was wrong (the design is in
+the source); tests/walkmodel.py models it in Python.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from .. import _kernels
 
 PAD = 256   # zero bytes past N that the kernel's 128-byte compares may read
+SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
 
 
 def _lcp(buf: bytes, p: int, c: int, limit: int) -> int:
@@ -106,9 +110,31 @@ def extract_compact(blocks: torch.Tensor, cands: torch.Tensor,
                     nxt: torch.Tensor, valid_lens: torch.Tensor, cap: int):
     """(ll, off, ml i32[B, cap], lits u8[B, N], nb_seq i32[B],
     nb_lit i32[B]). CPU tensors take `extract_plain`; CUDA tensors launch
-    csrc/extract.cu (one CTA of one warp per row) or raise."""
+    csrc/extract.cu (one CTA per row, its chain walked in 32 segments) or
+    raise. nxt must be `next_possible(blocks, cands)`, as ops.seqextract
+    builds it: the kernel walks one step per match through it."""
     if blocks.device.type == "cpu":
         return extract_plain(blocks, cands, nxt, valid_lens, cap)
+    return _extract_cuda(blocks, cands, nxt, valid_lens, cap, None)
+
+
+def extract_compact_stats(blocks: torch.Tensor, cands: torch.Tensor,
+                          nxt: torch.Tensor, valid_lens: torch.Tensor,
+                          cap: int):
+    """`extract_compact` on CUDA tensors, plus i32[B, 8] counts per row from
+    the kernel: the longest segment's speculative steps, the repair steps,
+    the repair rounds, the matches found before the cap, the row's SM
+    cycles, and the longest warp's cycles in the speculate, repair and emit
+    phases."""
+    if blocks.device.type == "cpu":
+        raise ValueError("extract_compact_stats: the counts come from the CUDA "
+                         "kernel; CPU tensors take extract_compact")
+    stats = torch.empty((blocks.shape[0], 8), dtype=torch.int32,
+                        device=blocks.device)
+    return _extract_cuda(blocks, cands, nxt, valid_lens, cap, stats), stats
+
+
+def _extract_cuda(blocks, cands, nxt, valid_lens, cap, stats):
     B, N = blocks.shape
     if blocks.device.type != "cuda":
         raise ValueError(f"extract_compact: unsupported device {blocks.device}")
@@ -120,7 +146,8 @@ def extract_compact(blocks: torch.Tensor, cands: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError(f"extract_compact: {name} must be a contiguous "
                              f"{dt} tensor of shape {shape} on {blocks.device}")
-    if N + PAD > 232448:
+    lib = _kernels.get("extract.cu")
+    if lib.extract_smem_bytes(N) > SMEM_LIMIT:
         raise ValueError(f"extract_compact: row of {N} bytes exceeds shared memory")
     dev = blocks.device
     ll = torch.empty((B, cap), dtype=torch.int32, device=dev)
@@ -129,13 +156,15 @@ def extract_compact(blocks: torch.Tensor, cands: torch.Tensor,
     lits = torch.empty((B, N), dtype=torch.uint8, device=dev)
     nb = torch.empty(B, dtype=torch.int32, device=dev)
     nb_lit = torch.empty_like(nb)
-    lib = _kernels.get("extract.cu")
+    scratch = torch.empty(B * lib.extract_scratch_bytes(N), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.extract_launch(
             blocks.data_ptr(), cands.data_ptr(), nxt.data_ptr(),
             valid_lens.data_ptr(), ll.data_ptr(), off.data_ptr(),
             ml.data_ptr(), lits.data_ptr(), nb.data_ptr(), nb_lit.data_ptr(),
+            scratch.data_ptr(), 0 if stats is None else stats.data_ptr(),
             B, N, cap, ctypes.c_void_p(stream))
     _kernels.check(err, "extract_launch")
     _kernels.LAUNCHES["extract"] += 1
