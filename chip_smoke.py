@@ -7,9 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the CUDA kernels from zstd_tpu_torch/csrc/ with nvcc, holds each
 kernel against its plain version at the main path's shapes (exact equality:
-zstd is an exact codec), drives the level-1 encode of the 16 MiB corpus
-through both kernels, checks the frame against the CPU path's on a 1 MiB
-prefix, and prints one JSON line of kernel timings before its last line:
+zstd is an exact codec; the FSE chain also on synthetic table sets, and its
+walk counts against tests/chainmodel.py), drives the level-1 encode of the
+16 MiB corpus through both kernels, checks the frame against the CPU path's
+on a 1 MiB prefix, and prints one JSON line of kernel timings before its
+last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -41,11 +43,15 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean time of fn() on the card over reps launches, after one warm run."""
+    """Mean device time of fn() over reps launches, after one warm run. The
+    launches queue behind a sleep kernel and run back to back, so the
+    wrapper's host time between them is not counted."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)       # about 10 ms of device time
     start.record()
     for _ in range(reps):
         fn()
@@ -109,6 +115,23 @@ def print_walk(walk, nb_seq) -> None:
           f"{slow[5]}, repair {slow[6]}, emit {slow[7]}", flush=True)
 
 
+def print_chain(stats, rows: int) -> None:
+    """The FSE chain kernel's counts per block and stream (fse_fields_stats):
+    segments, longest segment, most candidates, candidate walk steps, and
+    the SM cycles of its stage, cut, walk, resolve, replay and write
+    phases; then the slowest CTA's phases."""
+    s = stats.cpu().tolist()
+    for i in range(rows):
+        print(f"  row {i}: " + "; ".join(
+            f"{name} {c[0]} seg, longest {c[1]}, cands {c[2]}, walk {c[3]}, "
+            f"cycles {c[4:]}" for name, c in zip(("LL", "OF", "ML"), s[i])))
+    slow = max((c for r in s for c in r), key=lambda c: sum(c[4:]))
+    print("  slowest CTA cycles: " + ", ".join(
+        f"{n} {v}" for n, v in zip(("stage", "cut", "walk", "resolve",
+                                    "replay", "write"), slow[4:])),
+          flush=True)
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -149,8 +172,10 @@ def main() -> int:
     # by file: an installed package named `tests` can shadow the repo's
     sys.path.insert(0, os.path.join(root, "tests"))
     from bigcorpus import big_corpus
+    from chainmodel import SYNTHETIC_ROWS, chain_fields, synthetic_batch
     from zstd_tpu_torch import _kernels, pipeline
-    from zstd_tpu_torch.ops.fse_enc import fse_fields, fse_fields_plain
+    from zstd_tpu_torch.ops.fse_enc import (fse_fields, fse_fields_plain,
+                                            fse_fields_stats)
     from zstd_tpu_torch.ops.match import (hash_positions, prev_same_bucket,
                                           words_at)
     from zstd_tpu_torch.ops.resolve import (extract_compact,
@@ -253,18 +278,51 @@ def main() -> int:
         return pipeline.fse_inputs(resident, torch.from_numpy(blob).to(dev),
                                    cap)
 
-    f_cmp = fse_args(cmp_blocks[:8], cmp_lens[:8])
+    # the ten phase-2 rows (the token row reaches cap), then batch 0
+    f_cmp = fse_args(cmp_blocks, cmp_lens)
+    assert int(f_cmp[6][8]) == seq_cap, "the token row should reach the cap"
     err_f = max_abs_err(fse_fields(*f_cmp), fse_fields_plain(*f_cmp))
     f_args = fse_args(b0, b0_lens)
-    f_out = fse_fields(*f_args)
+    f_out, f_stats = fse_fields_stats(*f_args)
     err_f = max(err_f, max_abs_err(f_out, fse_fields_plain(*f_args)))
     print(f"fse_chain: cap {f_args[0].shape[1]} nb_seq "
           f"{f_args[6].tolist()[:8]}... max_abs_err {err_f}", flush=True)
     assert err_f == 0, "fse_chain kernel disagrees with fse_fields_plain"
+    print("fse_chain batch 0 counts (rows 0-7):")
+    print_chain(f_stats, 8)
+    # synthetic table sets at the main path's cap: no symbol of count 1
+    # (128 candidates a cut, maps in global scratch), RLE, predefined,
+    # random, nb_seq 0, 1, 2, cap
+    syn = tuple(torch.from_numpy(a).to(dev)
+                for a in synthetic_batch(seq_cap, seed=1))
+    syn_out, syn_stats = fse_fields_stats(*syn)
+    err_s = max_abs_err(syn_out, fse_fields_plain(*syn))
+    print(f"fse_chain synthetic rows {list(SYNTHETIC_ROWS)}: nb_seq "
+          f"{syn[6].tolist()} max_abs_err {err_s}", flush=True)
+    print_chain(syn_stats, len(SYNTHETIC_ROWS))
+    assert err_s == 0, "fse_chain kernel disagrees on the synthetic tables"
+    err_f = max(err_f, err_s)
+    # the kernel's counts against tests/chainmodel.py on blocks 0, 40, 43
+    m_blocks = np.stack([arr[i * N_BLOCK:(i + 1) * N_BLOCK]
+                         for i in (0, 40, 43)])
+    m_args = fse_args(torch.from_numpy(m_blocks).to(dev),
+                      torch.full((3,), N_BLOCK, dtype=torch.int32, device=dev))
+    m_out, m_stats = fse_fields_stats(*m_args)
+    m_vals, m_nbits, m_counts = chain_fields(
+        tuple(a.cpu().numpy() for a in m_args))
+    got = m_stats[:, :, :4].cpu().numpy()
+    for k, blk in enumerate((0, 40, 43)):
+        print(f"  block {blk}: kernel (segments, longest, most candidates, "
+              f"walk steps) per LL/OF/ML {got[k].tolist()}, model "
+              f"{m_counts[k].tolist()}")
+    assert (got == m_counts).all(), "fse_chain counts differ from the model"
+    assert (m_out[0].cpu().numpy() == m_vals).all() \
+        and (m_out[1].cpu().numpy() == m_nbits).all(), \
+        "fse_chain fields differ from the model's"
     f_ms = cuda_ms(lambda: fse_fields(*f_args))
     f_plain_ms = host_ms(lambda: fse_fields_plain(*f_args))
     f_bound = nbytes(*f_args, *f_out) / HBM_BYTES_PER_S * 1e3
-    print(f"fse_chain batch 0: kernel {f_ms:.3f} ms plain {f_plain_ms:.1f} ms "
+    print(f"fse_chain batch 0: kernel {f_ms:.4f} ms plain {f_plain_ms:.1f} ms "
           f"bound {f_bound * 1e3:.1f} us", flush=True)
 
     # ---- 4. main path: level-1 encode of the 16 MiB corpus ---------------
@@ -321,6 +379,9 @@ def main() -> int:
         print(f"profile: wall {prof['wall_ms']:.1f} ms, device busy "
               f"{prof['busy_ms']:.1f} ms, idle share "
               f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}", flush=True)
+        for kern in ("extract_kernel", "fse_chain_kernel"):
+            ms = sum(v for k, v in prof["by_name"].items() if kern in k)
+            print(f"  {kern}: {ms:.3f} ms of device time", flush=True)
         top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:12]
         for name, ms in top:
             print(f"  {ms:9.3f} ms  {name[:100]}")

@@ -21,6 +21,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("extract.cu", "fse_chain.cu")
 
+SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,7 +35,9 @@ _SIGNATURES = {
                    "extract_scratch_bytes": [_I],
                    "extract_smem_bytes": [_I]},
     "fse_chain.cu": {"fse_chain_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                          _P, _P, _P, _P, _I, _I, _P]},
+                                          _P, _P, _P, _P, _P, _P, _I, _I, _P],
+                     "fse_chain_scratch_bytes": [_I],
+                     "fse_chain_smem_bytes": [_I]},
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its

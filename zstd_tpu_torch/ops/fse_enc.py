@@ -4,7 +4,9 @@ Counterpart of fse_pack_block in zstd_tpu/ops/fse_enc.py (zstd's
 lib/compress/zstd_compress_sequences.c ZSTD_encodeSequences_body:291),
 batched over blocks. The state chain is `fse_fields`: csrc/fse_chain.cu for
 CUDA tensors, `fse_fields_plain` (a loop over the sequences on [B]-vectors
-of torch ops) for CPU tensors. ops.bitpack packs the fields.
+of torch ops) for CPU tensors. The kernel cuts each chain at its narrowest
+steps and resolves the cuts (the design is in the source);
+tests/chainmodel.py models it in Python. ops.bitpack packs the fields.
 
 Field order per block (M = 6 * cap + 4 fields, the scan's order in
 zstd_tpu): step k = 0..cap-1 handles sequence i = cap-1-k and writes
@@ -115,25 +117,49 @@ def fse_fields(llc, mlc, ofc, llx, mlb, ob, nb, st, dn, df, tl):
     """Codes/extras i32[B, cap], nb i32[B] (<= cap), tables st i32[B, 3, 512],
     dn/df i32[B, 3, 64], table logs tl i32[B, 3]. Returns (values, nbits)
     i32[B, 6 * cap + 4]. CPU tensors take `fse_fields_plain`; CUDA tensors
-    launch csrc/fse_chain.cu or raise."""
+    launch csrc/fse_chain.cu (a cut-and-resolve chain, one CTA per block and
+    stream) or raise."""
+    args = (llc, mlc, ofc, llx, mlb, ob, nb, st, dn, df, tl)
     if llc.device.type == "cpu":
-        return fse_fields_plain(llc, mlc, ofc, llx, mlb, ob, nb, st, dn, df, tl)
+        return fse_fields_plain(*args)
+    return _fse_cuda(args, None)
+
+
+def fse_fields_stats(llc, mlc, ofc, llx, mlb, ob, nb, st, dn, df, tl):
+    """`fse_fields` on CUDA tensors, plus i32[B, 3, 10] counts per block and
+    stream (LL, OF, ML) from the kernel: segments, longest segment, most
+    candidates at a cut, candidate walk steps (as tests/chainmodel.py counts
+    them), then the SM cycles of its stage, cut, candidate walk, resolve,
+    replay and write phases."""
+    if llc.device.type == "cpu":
+        raise ValueError("fse_fields_stats: the counts come from the CUDA "
+                         "kernel; CPU tensors take fse_fields")
+    stats = torch.empty((llc.shape[0], 3, 10), dtype=torch.int32,
+                        device=llc.device)
+    args = (llc, mlc, ofc, llx, mlb, ob, nb, st, dn, df, tl)
+    return _fse_cuda(args, stats), stats
+
+
+def _fse_cuda(args, stats):
+    llc, mlc, ofc, llx, mlb, ob, nb, st, dn, df, tl = args
     if llc.device.type != "cuda":
         raise ValueError(f"fse_fields: unsupported device {llc.device}")
     _check_inputs((llc, mlc, ofc, llx, mlb, ob), nb, st, dn, df, tl)
     B, cap = llc.shape
-    if 3 * cap + (3 * STATE_TABLE_PAD + 6 * SYM_PAD) * 4 > 232448:
+    lib = _kernels.get("fse_chain.cu")
+    if lib.fse_chain_smem_bytes(cap) > _kernels.SMEM_LIMIT:
         raise ValueError(f"fse_fields: cap {cap} exceeds shared memory")
     vals = torch.empty((B, 6 * cap + 4), dtype=torch.int32, device=llc.device)
     nbits = torch.empty_like(vals)
-    lib = _kernels.get("fse_chain.cu")
+    # candidate maps of a CTA whose maps do not fit in shared memory
+    scratch = torch.empty(3 * B * lib.fse_chain_scratch_bytes(cap),
+                          dtype=torch.uint8, device=llc.device)
     with torch.cuda.device(llc.device):
         stream = torch.cuda.current_stream(llc.device).cuda_stream
         err = lib.fse_chain_launch(
-            llc.data_ptr(), mlc.data_ptr(), ofc.data_ptr(), llx.data_ptr(),
-            mlb.data_ptr(), ob.data_ptr(), nb.data_ptr(), st.data_ptr(),
-            dn.data_ptr(), df.data_ptr(), tl.data_ptr(), vals.data_ptr(),
-            nbits.data_ptr(), B, cap, ctypes.c_void_p(stream))
+            *(a.data_ptr() for a in args), vals.data_ptr(), nbits.data_ptr(),
+            scratch.data_ptr(), 0 if stats is None else stats.data_ptr(),
+            B, cap, ctypes.c_void_p(stream))
     _kernels.check(err, "fse_chain_launch")
     _kernels.LAUNCHES["fse_chain"] += 1
     return vals, nbits

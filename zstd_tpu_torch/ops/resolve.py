@@ -32,7 +32,6 @@ import torch
 from .. import _kernels
 
 PAD = 256   # zero bytes past N that the kernel's 128-byte compares may read
-SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
 
 
 def _lcp(buf: bytes, p: int, c: int, limit: int) -> int:
@@ -147,7 +146,7 @@ def _extract_cuda(blocks, cands, nxt, valid_lens, cap, stats):
             raise ValueError(f"extract_compact: {name} must be a contiguous "
                              f"{dt} tensor of shape {shape} on {blocks.device}")
     lib = _kernels.get("extract.cu")
-    if lib.extract_smem_bytes(N) > SMEM_LIMIT:
+    if lib.extract_smem_bytes(N) > _kernels.SMEM_LIMIT:
         raise ValueError(f"extract_compact: row of {N} bytes exceeds shared memory")
     dev = blocks.device
     ll = torch.empty((B, cap), dtype=torch.int32, device=dev)
