@@ -9,9 +9,12 @@ It builds the CUDA kernels from zstd_tpu_torch/csrc/ with nvcc, holds each
 kernel against its plain version at the main path's shapes (exact equality:
 zstd is an exact codec; the FSE chain also on synthetic table sets, and its
 walk counts against tests/chainmodel.py), drives the level-1 encode of the
-16 MiB corpus through both kernels, checks the frame against the CPU path's
-on a 1 MiB prefix, and prints one JSON line of kernel timings before its
-last line:
+16 MiB corpus through both encode kernels, checks the frame against the CPU
+path's on a 1 MiB prefix, then decodes that frame on the card through both
+decode kernels (phase 6: Huffman lanes and sequence executor, each against
+its plain version, the over-read and depth errors, the fixture frames of
+tests/data/torch_decode) and prints one JSON line of kernel timings before
+its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -158,6 +161,205 @@ def profile_run(fn) -> dict:
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
     return dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3, by_name=by_name)
+
+
+def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
+    """Phase 6: the device decode of the main path's frame through both
+    decode kernels, each kernel against its plain version on that frame's
+    whole group, the error paths, the fixture frames, and the timings.
+    Returns the two kernels' entries of the kernels line."""
+    import hashlib
+
+    import torch
+    from decodecases import nested_data, underrun_frame
+    from zstd_tpu_torch import _kernels, device_decoder, pipeline
+    from zstd_tpu_torch.errors import Corruption
+    from zstd_tpu_torch.ops import decode_dev as dd
+
+    # ---- the main path: decode the 16 MiB frame --------------------------
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    device_decoder.COUNTS["host_frames"] = 0
+    times = []
+    t0 = time.perf_counter()
+    out = device_decoder.device_decompress(frame, device=dev)
+    times.append(time.perf_counter() - t0)
+    launches = dict(_kernels.LAUNCHES)
+    host_frames = device_decoder.COUNTS["host_frames"]
+    assert out == corpus, "device decode of the main path's frame differs"
+    assert host_frames == 0, f"{host_frames} frames went to the host decoder"
+    for k in ("huf_decode", "exec_seq"):
+        assert launches[k] > 0, f"kernel {k} was not launched on the decode"
+    t0 = time.perf_counter()
+    out2 = device_decoder.device_decompress(frame, device=dev)
+    times.append(time.perf_counter() - t0)
+    assert out2 == corpus
+    mbps = len(corpus) / min(times) / 1e6
+    print(f"decode: {len(frame)} B -> {len(out)} B == corpus, {mbps:.2f} MB/s "
+          f"(best of 2: {times[0]:.3f} s, {times[1]:.3f} s), launches "
+          f"{launches}, host-decoded frames {host_frames}", flush=True)
+
+    # ---- host parse, and the group's inputs on the card -------------------
+    t0 = time.perf_counter()
+    jobs = device_decoder._parse_jobs(frame, 31)
+    parse_ms = (time.perf_counter() - t0) * 1e3
+    pfs = [pf for _, pf, _ in jobs]
+    g = device_decoder._group_inputs(pfs)
+    a = {k: torch.from_numpy(v).to(dev) if hasattr(v, "shape") else v
+         for k, v in g.items()}
+    nl = g["n_lanes"]
+    nsy = g["n_syms"]
+    print(f"decode group: {nl} lanes (bucket {g['sb'].shape[0]}), byte_cap "
+          f"{g['sb'].shape[1]}, max_syms {g['max_syms']}, longest lane "
+          f"{int(nsy.max())} symbols, {g['nb_seq']} sequences, n "
+          f"{g['out_len']} (bucket {g['n']}); host parse {parse_ms:.1f} ms",
+          flush=True)
+
+    # ---- kernel 3 vs plain ---------------------------------------------------
+    h_args = (a["sb"], a["start_bits"], a["n_syms"], a["lut_sym"],
+              a["lut_len"], a["lane_tab"], g["max_syms"])
+    syms_k, final_k = dd.huf_decode_streams(*h_args)
+    t0 = time.perf_counter()
+    syms_p, final_p = dd.huf_decode_plain(*h_args)
+    torch.cuda.synchronize()
+    h_plain_ms = (time.perf_counter() - t0) * 1e3
+    col = torch.arange(g["max_syms"], device=dev)[None, :]
+    mask = col < a["n_syms"][:, None]
+    err_h = max(int(((syms_k.long() - syms_p.long()).abs() * mask).max()),
+                int((final_k - final_p).abs().max()))
+    assert int(final_k[:nl].abs().max()) == 0, "a lane did not end at bit 0"
+    print(f"huf_decode: max_abs_err {err_h} on syms[:, :n_syms] and final",
+          flush=True)
+    assert err_h == 0, "huf_decode kernel disagrees with huf_decode_plain"
+    h_ms = cuda_ms(lambda: dd.huf_decode_streams(*h_args))
+    stream_bytes = sum(len(s) for pf in pfs for s, _ in pf.lanes)
+    h_bytes = stream_bytes + 16 * nl + nbytes(a["lut_sym"], a["lut_len"]) \
+        + int(nsy.sum())
+    h_bound = h_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"huf_decode: kernel {h_ms:.3f} ms plain {h_plain_ms:.1f} ms bound "
+          f"{h_bound * 1e3:.2f} us ({h_bytes} B); longest lane "
+          f"{int(nsy.max())} dependent steps", flush=True)
+
+    # ---- kernel 4 vs plain ---------------------------------------------------
+    pool = dd.assemble_pool(syms_k, a["seg_start"], a["seg_lane"],
+                            a["seg_src"], a["seg_is_dev"], a["host_lits"],
+                            g["n"])
+    ptr, in_match, placed = dd.exec_prepare(
+        pool, a["lls"], a["mls"], a["offs"], g["nb_seq"], g["out_len"],
+        g["n"])
+    hist = torch.zeros(1, dtype=torch.uint8, device=dev)
+    e_args = (ptr, in_match, placed, hist, g["out_len"])
+    out_k, ok_k, rounds_k = dd.exec_resolve(*e_args)
+    t0 = time.perf_counter()
+    out_p, ok_p, rounds_p = dd.exec_resolve_plain(*e_args)
+    torch.cuda.synchronize()
+    e_plain_ms = (time.perf_counter() - t0) * 1e3
+    err_e = int((out_k.long() - out_p.long()).abs().max())
+    print(f"exec_seq: max_abs_err {err_e}, ok {bool(ok_k)}/{bool(ok_p)}, "
+          f"rounds {int(rounds_k)}/{rounds_p} (kernel/plain)", flush=True)
+    assert err_e == 0 and bool(ok_k) == bool(ok_p) and \
+        int(rounds_k) == rounds_p, "exec_seq kernel disagrees with its plain"
+    assert out_k[:len(corpus)].cpu().numpy().tobytes() == corpus
+    e_ms = cuda_ms(lambda: dd.exec_resolve(*e_args))
+    n = g["n"]
+    e_bytes = nbytes(ptr, in_match, placed, hist) + n + 1
+    e_bound = e_bytes / HBM_BYTES_PER_S * 1e3
+    round_bytes = 12 * n          # read, gather and write i32 pointers
+    print(f"exec_seq: kernel {e_ms:.3f} ms plain {e_plain_ms:.1f} ms bound "
+          f"{e_bound * 1e3:.1f} us (inputs and outputs once, {e_bytes} B); "
+          f"{int(rounds_k)} rounds x {round_bytes} B = "
+          f"{int(rounds_k) * round_bytes / HBM_BYTES_PER_S * 1e6:.1f} us",
+          flush=True)
+
+    # ---- the device program of one already-parsed group ------------------
+    device_decoder._dispatch_group(pfs, dev)          # warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = device_decoder._dispatch_group(pfs, dev)
+    end.record()
+    torch.cuda.synchronize()
+    group_host_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = start.elapsed_time(end)
+    assert bool(res[1])
+    print(f"decode device program: {dev_ms:.1f} ms between events around "
+          f"_dispatch_group ({group_host_ms:.1f} ms host wall, inputs "
+          f"packed and uploaded)", flush=True)
+    prof = profile_run(lambda: device_decoder.device_decompress(frame,
+                                                                device=dev))
+    if prof["busy_ms"] > 0:
+        print(f"decode profile: wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['busy_ms']:.1f} ms, idle share "
+              f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}", flush=True)
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:10]
+        for name, ms in top:
+            print(f"  {ms:9.3f} ms  {name[:100]}")
+    else:
+        print("decode profile: the profiler recorded no device activity; "
+              "device busy time not measured", flush=True)
+
+    # ---- error paths ------------------------------------------------------
+    prefix = corpus[:PREFIX_BYTES]
+    bad = underrun_frame(pipeline.compress(prefix, level=1, device=dev))
+    for where in (dev, "cpu"):
+        try:
+            device_decoder.device_decompress(bad, device=where)
+        except Corruption as e:
+            assert "huffman stream over-read" in str(e), e
+        else:
+            raise AssertionError(f"under-run not detected on {where}")
+    _, _, ok = device_decoder.device_decompress_resident(bad, device=dev)
+    assert not bool(ok) and ok.error_kind() == "over-read"
+    nested = nested_data()
+    nframe = pipeline.compress(nested, level=1, device=dev)
+    assert device_decoder.device_decompress(nframe, device=dev) == nested
+    saved, dd.EXEC_ROUNDS = dd.EXEC_ROUNDS, 2
+    try:
+        _, n_out, ok = device_decoder.device_decompress_resident(nframe,
+                                                                 device=dev)
+        kind = ok.error_kind()
+    finally:
+        dd.EXEC_ROUNDS = saved
+    assert n_out == len(nested) and not bool(ok) and kind == "exec-depth", \
+        (bool(ok), kind)
+    f_ck = pipeline.compress(prefix, level=1, checksum=True, device=dev)
+    d_gpu = device_decoder.device_decompress(f_ck, device=dev)
+    d_cpu = device_decoder.device_decompress(f_ck, device="cpu")
+    assert d_gpu == d_cpu == prefix, "1 MiB prefix: cuda and cpu decodes"
+    print("decode checks: under-run raises over-read on cuda and cpu; "
+          "depth limit 2 gives exec-depth; 1 MiB checksum frame cuda == cpu",
+          flush=True)
+
+    # ---- fixture frames of other encoders ------------------------------------
+    fdir = os.path.join(root, "tests", "data", "torch_decode")
+    with open(os.path.join(fdir, "manifest.json")) as f:
+        manifest = json.load(f)
+    device_decoder.COUNTS["host_frames"] = 0
+    for name, want in sorted(manifest.items()):
+        with open(os.path.join(fdir, name), "rb") as f:
+            got = device_decoder.device_decompress(f.read(), device=dev)
+        assert len(got) == want["size"] and \
+            hashlib.sha256(got).hexdigest() == want["sha256"], name
+    print(f"decode fixtures: {len(manifest)} frames equal their digests "
+          f"(host-decoded frames {device_decoder.COUNTS['host_frames']})",
+          flush=True)
+
+    return [
+        dict(name="huf_decode", route="cuda",
+             source="zstd_tpu_torch/csrc/huf_decode.cu",
+             replaces="zstd_tpu/ops/decode_dev.py:59",
+             launches=launches["huf_decode"], max_abs_err=err_h, ms=h_ms,
+             plain_ms=h_plain_ms, bound_ms=h_bound, bound_by="bytes",
+             library_ms=None),
+        dict(name="exec_seq", route="cuda",
+             source="zstd_tpu_torch/csrc/exec_seq.cu",
+             replaces="zstd_tpu/ops/decode_dev.py:150",
+             launches=launches["exec_seq"], max_abs_err=err_e, ms=e_ms,
+             plain_ms=e_plain_ms, bound_ms=e_bound, bound_by="bytes",
+             library_ms=None),
+    ]
 
 
 def main() -> int:
@@ -343,8 +545,8 @@ def main() -> int:
           f"{len(corpus) / len(frame):.4f}, {mbps:.2f} MB/s (best of 2: "
           f"{times[0]:.3f} s, {times[1]:.3f} s), launches {launches}",
           flush=True)
-    for k, v in launches.items():
-        assert v > 0, f"kernel {k} was not launched on the main path"
+    for k in ("extract", "fse_chain"):
+        assert launches[k] > 0, f"kernel {k} was not launched on the main path"
     n_blocks = frame_blocks(frame)
     assert n_blocks == len(corpus) // block_size, n_blocks
 
@@ -403,6 +605,9 @@ def main() -> int:
              ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound,
              bound_by="bytes", library_ms=None),
     ]
+
+    # ---- 6. device decode of the main path's frame ------------------------
+    kernels += decode_phase(dev, corpus, frame, root)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,7 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("extract.cu", "fse_chain.cu")
+SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu")
 
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,11 +38,15 @@ _SIGNATURES = {
                                           _P, _P, _P, _P, _P, _P, _I, _I, _P],
                      "fse_chain_scratch_bytes": [_I],
                      "fse_chain_smem_bytes": [_I]},
+    "huf_decode.cu": {"huf_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                            _I, _I, _I, _I, _P]},
+    "exec_seq.cu": {"exec_seq_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _P]},
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its
 # kernel (and nowhere else), so a run can show which kernels it went through
-LAUNCHES = {"extract": 0, "fse_chain": 0}
+LAUNCHES = {"extract": 0, "fse_chain": 0, "huf_decode": 0, "exec_seq": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

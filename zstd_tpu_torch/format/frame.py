@@ -1,12 +1,33 @@
-"""Frame header serialization.
+"""Frame headers, the host frame decoder and skippable frames.
 
-Copy of write_frame_header in zstd_tpu/format/frame.py (zstd's
-lib/compress/zstd_compress.c ZSTD_writeFrameHeader:4626).
+Copy of write_frame_header, FrameHeader, parse_frame_header, is_skippable
+and the Python branch of decompress_frame in zstd_tpu/format/frame.py
+(zstd's lib/compress/zstd_compress.c ZSTD_writeFrameHeader:4626,
+lib/decompress/zstd_decompress.c ZSTD_getFrameHeader_advanced:447 and
+ZSTD_decompressFrame:951).
 """
 
 from __future__ import annotations
 
-from ..constants import ZSTD_MAGIC
+import dataclasses
+
+from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_RAW,
+                         BT_RESERVED, BT_RLE, SKIPPABLE_MAGIC_MAX,
+                         SKIPPABLE_MAGIC_MIN, WINDOWLOG_LIMIT_DEFAULT,
+                         ZSTD_MAGIC)
+from ..errors import Corruption, ZstdError, ZstdErrorCode
+from ..xxhash64 import content_checksum
+from .block import BlockDState, decompress_block
+
+
+@dataclasses.dataclass
+class FrameHeader:
+    window_size: int
+    frame_content_size: int | None
+    dict_id: int
+    checksum_flag: bool
+    single_segment: bool
+    header_size: int
 
 
 def write_frame_header(src_size: int, window_log: int, checksum: bool,
@@ -56,3 +77,121 @@ def write_frame_header(src_size: int, window_log: int, checksum: bool,
     else:
         out += src_size.to_bytes(8, "little")
     return bytes(out)
+
+
+def parse_frame_header(data: bytes, window_log_max: int = WINDOWLOG_LIMIT_DEFAULT
+                       ) -> FrameHeader:
+    """ZSTD_getFrameHeader_advanced (zstd format only; caller strips magic)."""
+    if len(data) < 5:
+        raise ZstdError(ZstdErrorCode.srcSize_wrong, "input too small for frame header")
+    magic = int.from_bytes(data[:4], "little")
+    if magic != ZSTD_MAGIC:
+        raise ZstdError(ZstdErrorCode.prefix_unknown, f"bad magic 0x{magic:08X}")
+    fhd = data[4]
+    did_code = fhd & 3
+    checksum_flag = bool((fhd >> 2) & 1)
+    single_segment = bool((fhd >> 5) & 1)
+    fcs_code = fhd >> 6
+    if (fhd >> 3) & 1:
+        raise Corruption("reserved bit set in frame header")
+    pos = 5
+    if not single_segment:
+        if len(data) < pos + 1:
+            raise ZstdError(ZstdErrorCode.srcSize_wrong)
+        wd = data[pos]
+        pos += 1
+        exponent = wd >> 3
+        mantissa = wd & 7
+        window_log = 10 + exponent
+        window_size = (1 << window_log) + ((1 << window_log) // 8) * mantissa
+        if window_log > window_log_max:
+            raise ZstdError(ZstdErrorCode.frameParameter_windowTooLarge,
+                            f"windowLog {window_log} > limit {window_log_max}")
+    else:
+        window_size = 0  # = frame content size, set below
+    did_size = (0, 1, 2, 4)[did_code]
+    if len(data) < pos + did_size:
+        raise ZstdError(ZstdErrorCode.srcSize_wrong)
+    dict_id = int.from_bytes(data[pos : pos + did_size], "little") if did_size else 0
+    pos += did_size
+    fcs_size = (1 if single_segment else 0, 2, 4, 8)[fcs_code]
+    if len(data) < pos + fcs_size:
+        raise ZstdError(ZstdErrorCode.srcSize_wrong)
+    fcs = None
+    if fcs_size:
+        fcs = int.from_bytes(data[pos : pos + fcs_size], "little")
+        if fcs_size == 2:
+            fcs += 256
+        pos += fcs_size
+    if single_segment:
+        window_size = fcs if fcs is not None else 0
+    return FrameHeader(window_size, fcs, dict_id, checksum_flag,
+                       single_segment, pos)
+
+
+def decompress_frame(data: bytes, pos: int,
+                     window_log_max: int = WINDOWLOG_LIMIT_DEFAULT
+                     ) -> tuple[bytes, int]:
+    """Decode one zstd frame starting at data[pos:]; returns (content, end)."""
+    hdr = parse_frame_header(data[pos:], window_log_max)
+    if hdr.dict_id:
+        raise ZstdError(ZstdErrorCode.dictionary_wrong,
+                        "frame requires a dictionary (unsupported here)")
+    pos += hdr.header_size
+    out = bytearray()
+    state = BlockDState()
+    block_max = min(hdr.window_size or BLOCK_MAX_SIZE, BLOCK_MAX_SIZE)
+    if hdr.single_segment and hdr.frame_content_size is not None:
+        block_max = min(max(hdr.frame_content_size, 1), BLOCK_MAX_SIZE)
+    last = False
+    while not last:
+        if pos + BLOCK_HEADER_SIZE > len(data):
+            raise ZstdError(ZstdErrorCode.srcSize_wrong, "truncated block header")
+        bh = int.from_bytes(data[pos : pos + 3], "little")
+        pos += 3
+        last = bool(bh & 1)
+        btype = (bh >> 1) & 3
+        bsize = bh >> 3
+        if btype == BT_RESERVED:
+            raise Corruption("reserved block type")
+        if btype == BT_RAW:
+            if pos + bsize > len(data):
+                raise ZstdError(ZstdErrorCode.srcSize_wrong, "truncated raw block")
+            out += data[pos : pos + bsize]
+            pos += bsize
+        elif btype == BT_RLE:
+            if pos + 1 > len(data):
+                raise ZstdError(ZstdErrorCode.srcSize_wrong, "truncated RLE block")
+            if bsize > block_max:
+                raise Corruption("RLE block larger than maximum")
+            out += data[pos : pos + 1] * bsize
+            pos += 1
+        else:
+            if bsize > block_max or pos + bsize > len(data):
+                raise (Corruption("compressed block larger than maximum")
+                       if bsize > block_max else
+                       ZstdError(ZstdErrorCode.srcSize_wrong, "truncated block"))
+            window_low = max(0, len(out) - (hdr.window_size or (1 << 63)))
+            state = decompress_block(data[pos : pos + bsize], out, window_low,
+                                     state, block_max)
+            pos += bsize
+    if hdr.frame_content_size is not None and len(out) != hdr.frame_content_size:
+        raise Corruption(
+            f"content size mismatch: {len(out)} != {hdr.frame_content_size}")
+    if hdr.checksum_flag:
+        if pos + 4 > len(data):
+            raise ZstdError(ZstdErrorCode.srcSize_wrong, "missing checksum")
+        expect = int.from_bytes(data[pos : pos + 4], "little")
+        pos += 4
+        got = content_checksum(bytes(out))
+        if got != expect:
+            raise ZstdError(ZstdErrorCode.checksum_wrong,
+                            f"checksum 0x{got:08X} != 0x{expect:08X}")
+    return bytes(out), pos
+
+
+def is_skippable(data: bytes, pos: int) -> bool:
+    if pos + 4 > len(data):
+        return False
+    magic = int.from_bytes(data[pos : pos + 4], "little")
+    return SKIPPABLE_MAGIC_MIN <= magic <= SKIPPABLE_MAGIC_MAX

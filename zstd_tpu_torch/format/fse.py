@@ -1,12 +1,13 @@
-"""Finite State Entropy (tANS), encoder half — exact RFC 8878 semantics.
+"""Finite State Entropy (tANS) — exact RFC 8878 semantics.
 
 Copy of the Python branches of zstd_tpu/format/fse.py: table-log selection,
 the exact normalization (zstd's lib/compress/fse_compress.c
 FSE_normalizeCount:465, FSE_normalizeM2:379), the normalized-count
-serialization (FSE_writeNCount), the encode-table build
-(FSE_buildCTable_wksp:68) and the interleaved 2-state byte codec used for
-Huffman weights (FSE_compress_usingCTable:610). Host-side numpy + Python
-ints.
+serialization and parsing (FSE_writeNCount, "FSE Table Description"), the
+encode- and decode-table builds (FSE_buildCTable_wksp:68,
+fse_decompress.c FSE_buildDTable_internal) and the interleaved 2-state
+byte codec used for Huffman weights (FSE_compress_usingCTable:610,
+FSE_decompress_usingDTable_generic). Host-side numpy + Python ints.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 
 from ..constants import FSE_DEFAULT_TABLELOG, FSE_MAX_TABLELOG, FSE_MIN_TABLELOG, highbit32
 from ..errors import Corruption, ZstdError, ZstdErrorCode
-from .bitstream import BitWriter
+from .bitstream import BitReader, BitWriter, ForwardBitReader
 
 
 # --------------------------------------------------------------------------
@@ -248,6 +249,108 @@ def write_ncount(norm: np.ndarray, max_symbol: int, table_log: int) -> bytes:
     return bytes(out[: len(out) - 2 + n_extra])
 
 
+def read_ncount(data: bytes, max_symbol_limit: int, max_log: int
+                ) -> tuple[np.ndarray, int, int, int]:
+    """Parse an FSE table description.
+
+    Returns (norm int32 array sized max_symbol+1, max_symbol, table_log,
+    bytes_consumed). Spec: "FSE Table Description".
+    """
+    if len(data) < 1:
+        raise Corruption("NCount: empty input")
+    br = ForwardBitReader(data)
+    table_log = br.read(4) + FSE_MIN_TABLELOG
+    if table_log > max_log:
+        raise ZstdError(ZstdErrorCode.tableLog_tooLarge,
+                        f"accuracy {table_log} > max {max_log}")
+    table_size = 1 << table_log
+    remaining = table_size + 1
+    threshold = table_size
+    nb_bits = table_log + 1
+
+    norm = np.zeros(max_symbol_limit + 1, dtype=np.int32)
+    charnum = 0
+    previous_is0 = False
+    while remaining > 1 and charnum <= max_symbol_limit:
+        if previous_is0:
+            # read zero-run flags
+            while True:
+                rep = br.read(2)
+                charnum += rep
+                if rep < 3:
+                    break
+            if charnum > max_symbol_limit:
+                raise Corruption("NCount: too many symbols")
+        mx = (2 * threshold - 1) - remaining
+        low = br.peek(nb_bits - 1) & (threshold - 1)
+        if low < mx:
+            value = low
+            br.skip(nb_bits - 1)
+        else:
+            full = br.read(nb_bits) & (2 * threshold - 1)
+            value = full if full < threshold else full - mx
+        proba = value - 1
+        if proba == -1:
+            remaining -= 1
+            norm[charnum] = -1
+        else:
+            remaining -= proba
+            norm[charnum] = proba
+        charnum += 1
+        previous_is0 = (proba == 0)
+        if remaining < 1:
+            raise Corruption("NCount: distribution overshoot")
+        while remaining < threshold:
+            nb_bits -= 1
+            threshold >>= 1
+
+    if remaining != 1:
+        raise Corruption("NCount: distribution does not sum to table size")
+    if charnum < 2:
+        raise Corruption("NCount: fewer than 2 symbols")
+    max_symbol = charnum - 1
+    nbytes = br.bytes_consumed
+    if nbytes > len(data):
+        raise Corruption("NCount: ran past input")
+    return norm[: max_symbol + 1], max_symbol, table_log, nbytes
+
+
+# --------------------------------------------------------------------------
+# Decode table
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DTable:
+    table_log: int
+    symbol: np.ndarray     # int32[table_size]
+    nb_bits: np.ndarray    # int32[table_size]
+    new_state: np.ndarray  # int32[table_size] (baseline to add read bits to)
+
+
+def build_dtable(norm: np.ndarray, table_log: int) -> DTable:
+    table_size = 1 << table_log
+    spread, _ = _spread_symbols(norm, table_log)
+    symbol_next = np.where(norm == -1, 1, norm).astype(np.int64)
+    nb_bits = np.zeros(table_size, dtype=np.int32)
+    new_state = np.zeros(table_size, dtype=np.int32)
+    for u in range(table_size):
+        s = int(spread[u])
+        next_state = int(symbol_next[s])
+        symbol_next[s] += 1
+        nb = table_log - highbit32(next_state)
+        nb_bits[u] = nb
+        new_state[u] = (next_state << nb) - table_size
+    return DTable(table_log, spread, nb_bits, new_state)
+
+
+def build_dtable_rle(symbol: int) -> DTable:
+    """Single-state table for RLE mode (ZSTD_buildSeqTable rle path)."""
+    return DTable(0,
+                  np.array([symbol], dtype=np.int32),
+                  np.array([0], dtype=np.int32),
+                  np.array([0], dtype=np.int32))
+
+
 # --------------------------------------------------------------------------
 # Encode table
 # --------------------------------------------------------------------------
@@ -384,3 +487,33 @@ def fse_compress_2state(data: bytes, ct: CTable) -> bytes:
     c2.flush(bw)
     c1.flush(bw)
     return bw.close()
+
+
+def fse_decompress_2state(data: bytes, dt: DTable, max_out: int) -> bytes:
+    """FSE_decompress_usingDTable_generic semantics (alternating states;
+    stops one symbol after bitstream overflow)."""
+    br = BitReader(data)
+    s1 = br.read(dt.table_log)
+    s2 = br.read(dt.table_log)
+    if br.overflowed:
+        raise Corruption("FSE stream too short for initial states")
+    out = bytearray()
+    sym = dt.symbol
+    nbb = dt.nb_bits
+    ns = dt.new_state
+    while True:
+        if len(out) >= max_out:
+            raise ZstdError(ZstdErrorCode.dstSize_tooSmall, "FSE output overflow")
+        out.append(int(sym[s1]))
+        s1 = int(ns[s1]) + br.read_clamped(int(nbb[s1]))
+        if br.pos < 0:
+            out.append(int(sym[s2]))
+            break
+        if len(out) >= max_out:
+            raise ZstdError(ZstdErrorCode.dstSize_tooSmall, "FSE output overflow")
+        out.append(int(sym[s2]))
+        s2 = int(ns[s2]) + br.read_clamped(int(nbb[s2]))
+        if br.pos < 0:
+            out.append(int(sym[s1]))
+            break
+    return bytes(out)

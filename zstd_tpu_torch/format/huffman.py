@@ -1,10 +1,12 @@
-"""Huffman coding for literals, encoder half — exact RFC 8878 semantics.
+"""Huffman coding for literals — exact RFC 8878 semantics.
 
 Copy of the Python branches of zstd_tpu/format/huffman.py: canonical tree
 construction with the 11-bit height limit (zstd's lib/compress/huf_compress.c
 HUF_sort:620, HUF_buildTree:681, HUF_setMaxHeight:376,
-HUF_buildCTableFromTree:730) and the tree description serialization
-(HUF_writeCTable_wksp:248, HUF_compressWeights:147).
+HUF_buildCTableFromTree:730), the tree description serialization
+(HUF_writeCTable_wksp:248, HUF_compressWeights:147) and its parsing
+(HUF_readStats), the single-symbol decode table, and the 1- and 4-stream
+host decoders.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 from ..constants import HUF_WEIGHT_FSE_LOG_MAX, highbit32
 from ..errors import Corruption
 from . import fse
+from .bitstream import BitReader
 
 HUF_TABLELOG_ABSOLUTEMAX = 12
 HUF_TABLELOG_DEFAULT = 11
@@ -254,3 +257,133 @@ def _compress_weights(weights: bytes) -> bytes | None:
     if not payload:
         return None
     return header + payload
+
+
+def read_tree_description(data: bytes) -> tuple[np.ndarray, int, int, int]:
+    """HUF_readStats: returns (nb_bits per symbol int32[256], nb_symbols,
+    table_log, bytes_consumed)."""
+    if len(data) < 1:
+        raise Corruption("huffman tree: empty")
+    header = data[0]
+    if header >= 128:
+        # direct 4-bit representation
+        o_size = header - 127
+        n_bytes = (o_size + 1) // 2
+        if 1 + n_bytes > len(data):
+            raise Corruption("huffman tree: truncated direct weights")
+        weights = []
+        for i in range(o_size):
+            b = data[1 + i // 2]
+            weights.append((b >> 4) if i % 2 == 0 else (b & 0xF))
+        consumed = 1 + n_bytes
+    else:
+        # FSE-compressed weights
+        c_size = header
+        if 1 + c_size > len(data):
+            raise Corruption("huffman tree: truncated FSE weights")
+        payload = data[1 : 1 + c_size]
+        norm, max_sym, table_log, hdr_len = fse.read_ncount(
+            payload, HUF_TABLELOG_ABSOLUTEMAX, HUF_WEIGHT_FSE_LOG_MAX)
+        dt = fse.build_dtable(norm, table_log)
+        weights = list(fse.fse_decompress_2state(payload[hdr_len:], dt, 255))
+        consumed = 1 + c_size
+
+    if len(weights) > 255:
+        raise Corruption("huffman tree: too many weights")
+    total = 0
+    for w in weights:
+        if w > HUF_TABLELOG_ABSOLUTEMAX:
+            raise Corruption("huffman tree: weight too large")
+        if w > 0:
+            total += 1 << (w - 1)
+    if total == 0:
+        raise Corruption("huffman tree: no weights")
+    table_log = highbit32(total) + 1
+    if table_log > HUF_TABLELOG_ABSOLUTEMAX:
+        raise Corruption("huffman tree: tableLog too large")
+    rest = (1 << table_log) - total
+    last_weight = highbit32(rest) + 1 if rest > 0 else 0
+    if last_weight == 0 or (1 << (last_weight - 1)) != rest:
+        raise Corruption("huffman tree: invalid implied last weight")
+    weights.append(last_weight)
+    nb_symbols = len(weights)
+    if nb_symbols > 256:
+        raise Corruption("huffman tree: too many symbols")
+
+    nb_bits = np.zeros(256, dtype=np.int32)
+    for s, w in enumerate(weights):
+        nb_bits[s] = (table_log + 1 - w) if w > 0 else 0
+    return nb_bits, nb_symbols, table_log, consumed
+
+
+@dataclasses.dataclass
+class HufDTable:
+    table_log: int
+    symbol: np.ndarray   # int32[2^table_log]
+    length: np.ndarray   # int32[2^table_log]
+
+
+def build_huf_dtable(nb_bits: np.ndarray, nb_symbols: int, table_log: int) -> HufDTable:
+    """Single-symbol (X1) decode LUT: canonical codes, ascending from lowest
+    weight, symbols in natural order within a weight."""
+    table_size = 1 << table_log
+    symbol = np.zeros(table_size, dtype=np.int32)
+    length = np.zeros(table_size, dtype=np.int32)
+    pos = 0
+    # weight w corresponds to nbBits = table_log + 1 - w; lowest weight first
+    for w in range(1, table_log + 1):
+        n = table_log + 1 - w
+        span = 1 << (table_log - n)
+        for s in range(nb_symbols):
+            if nb_bits[s] == n:
+                symbol[pos : pos + span] = s
+                length[pos : pos + span] = n
+                pos += span
+    if pos != table_size:
+        raise Corruption("huffman decode table underfilled")
+    return HufDTable(table_log, symbol, length)
+
+
+def huf_decode_1x(data: bytes, dt: HufDTable, regen_size: int) -> bytes:
+    br = BitReader(data)
+    out = bytearray(regen_size)
+    tlog = dt.table_log
+    sym = dt.symbol
+    ln = dt.length
+    acc = br.acc
+    pos = br.pos
+    mask = (1 << tlog) - 1
+    for i in range(regen_size):
+        if pos >= tlog:
+            idx = (acc >> (pos - tlog)) & mask
+        elif pos <= 0:
+            raise Corruption("huffman stream exhausted early")
+        else:
+            idx = (acc << (tlog - pos)) & mask
+        out[i] = int(sym[idx])
+        pos -= int(ln[idx])
+    if pos != 0:
+        raise Corruption("huffman stream not exactly consumed")
+    return bytes(out)
+
+
+def huf_decode_4x(data: bytes, dt: HufDTable, regen_size: int) -> bytes:
+    if len(data) < 10:
+        raise Corruption("4-stream literals too short")
+    s1 = int.from_bytes(data[0:2], "little")
+    s2 = int.from_bytes(data[2:4], "little")
+    s3 = int.from_bytes(data[4:6], "little")
+    total = len(data) - 6
+    s4 = total - s1 - s2 - s3
+    if s4 < 1:
+        raise Corruption("4-stream jump table inconsistent")
+    seg = (regen_size + 3) // 4
+    last = regen_size - 3 * seg
+    if last < 0:
+        raise Corruption("4-stream regenerated size too small")
+    out = bytearray()
+    off = 6
+    for size, rs in ((s1, seg), (s2, seg), (s3, seg), (s4, last)):
+        out += huf_decode_1x(data[off : off + size], dt, rs)
+        off += size
+    return bytes(out)

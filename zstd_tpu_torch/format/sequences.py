@@ -1,12 +1,15 @@
-"""Sequences section header: encoding-type selection and table builds.
+"""Sequences section: encoding-type selection and table builds (encoder),
+header parsing and the 3-state FSE sequence decode (decoder).
 
 Copy of the Python branches of zstd_tpu/format/sequences.py that the device
-pipeline's host planning uses. Parity targets: zstd's
-lib/compress/zstd_compress_sequences.c (ZSTD_selectEncodingType,
-ZSTD_buildCTable, ZSTD_fseBitCost) and lib/compress/zstd_compress.c
-ZSTD_buildSequencesStatistics:2757 (LL table, then OF, then ML;
-set_compressed decrements the last sequence's code count before
-normalization).
+pipeline's host planning and the device decoder's host parse use. Parity
+targets: zstd's lib/compress/zstd_compress_sequences.c
+(ZSTD_selectEncodingType, ZSTD_buildCTable, ZSTD_fseBitCost),
+lib/compress/zstd_compress.c ZSTD_buildSequencesStatistics:2757 (LL table,
+then OF, then ML; set_compressed decrements the last sequence's code count
+before normalization) and lib/decompress/zstd_decompress_block.c
+(ZSTD_decodeSeqHeaders:695, ZSTD_buildSeqTable:647, the sequence decode
+loops).
 """
 
 from __future__ import annotations
@@ -17,13 +20,15 @@ import functools
 import numpy as np
 
 from ..constants import (
-    LL_DEFAULT_DIST, LL_DEFAULT_LOG, LL_FSE_LOG,
-    MAX_LL_CODE, MAX_ML_CODE,
-    ML_DEFAULT_DIST, ML_DEFAULT_LOG, ML_FSE_LOG,
+    LL_BASE, LL_BITS, LL_DEFAULT_DIST, LL_DEFAULT_LOG, LL_FSE_LOG,
+    MAX_LL_CODE, MAX_ML_CODE, MAX_OFF_CODE,
+    ML_BASE, ML_BITS, ML_DEFAULT_DIST, ML_DEFAULT_LOG, ML_FSE_LOG,
     MODE_FSE, MODE_PREDEFINED, MODE_REPEAT, MODE_RLE,
     OF_DEFAULT_DIST, OF_DEFAULT_LOG, OF_FSE_LOG,
 )
+from ..errors import Corruption
 from . import fse
+from .bitstream import BitReader
 
 LONGNBSEQ = 0x7F00
 DEFAULT_MAX_OFF = 28  # largest offset code in the predefined distribution
@@ -271,3 +276,136 @@ def build_sequences_header_from_hists(
     out += of_hdr
     out += ml_hdr
     return bytes(out), nxt, last_count_size
+
+
+# --------------------------------------------------------------------------
+# Decode side
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FseDecodeState:
+    """Per-frame carried decode tables (ZSTD_entropyDTables_t analog)."""
+    dt_ll: fse.DTable | None = None
+    dt_of: fse.DTable | None = None
+    dt_ml: fse.DTable | None = None
+
+    def copy(self) -> "FseDecodeState":
+        return FseDecodeState(self.dt_ll, self.dt_of, self.dt_ml)
+
+
+_PREDEF_DT_LL = fse.build_dtable(LL_DEFAULT_DIST.astype(np.int32), LL_DEFAULT_LOG)
+_PREDEF_DT_OF = fse.build_dtable(OF_DEFAULT_DIST.astype(np.int32), OF_DEFAULT_LOG)
+_PREDEF_DT_ML = fse.build_dtable(ML_DEFAULT_DIST.astype(np.int32), ML_DEFAULT_LOG)
+
+
+def _build_seq_dtable(mode: int, data: bytes, max_code: int, max_log: int,
+                      predef: fse.DTable, prev: fse.DTable | None
+                      ) -> tuple[fse.DTable, int]:
+    """ZSTD_buildSeqTable: returns (dtable, bytes consumed)."""
+    if mode == MODE_PREDEFINED:
+        return predef, 0
+    if mode == MODE_RLE:
+        if len(data) < 1:
+            raise Corruption("RLE table: missing symbol byte")
+        sym = data[0]
+        if sym > max_code:
+            raise Corruption("RLE table: symbol out of range")
+        return fse.build_dtable_rle(sym), 1
+    if mode == MODE_REPEAT:
+        if prev is None:
+            raise Corruption("repeat mode without previous table")
+        return prev, 0
+    assert mode == MODE_FSE
+    norm, max_sym, table_log, consumed = fse.read_ncount(data, max_code, max_log)
+    return fse.build_dtable(norm, table_log), consumed
+
+
+def parse_sequences_section(data: bytes, prev: FseDecodeState
+                            ) -> tuple[int, FseDecodeState, int]:
+    """Parse nbSeq + modes + tables. Returns (nb_seq, tables, header_len)."""
+    if len(data) < 1:
+        raise Corruption("sequences section: empty")
+    b0 = data[0]
+    if b0 < 128:
+        nb_seq = b0
+        pos = 1
+    elif b0 < 255:
+        if len(data) < 2:
+            raise Corruption("sequences section: truncated nbSeq")
+        nb_seq = ((b0 - 0x80) << 8) + data[1]
+        pos = 2
+    else:
+        if len(data) < 3:
+            raise Corruption("sequences section: truncated nbSeq")
+        nb_seq = data[1] + (data[2] << 8) + LONGNBSEQ
+        pos = 3
+    if nb_seq == 0:
+        return 0, prev.copy(), pos
+
+    if len(data) < pos + 1:
+        raise Corruption("sequences section: missing modes byte")
+    modes = data[pos]
+    pos += 1
+    if modes & 0x3:
+        raise Corruption("sequences section: reserved mode bits set")
+    ll_mode = (modes >> 6) & 3
+    of_mode = (modes >> 4) & 3
+    ml_mode = (modes >> 2) & 3
+
+    nxt = prev.copy()
+    nxt.dt_ll, c = _build_seq_dtable(ll_mode, data[pos:], MAX_LL_CODE,
+                                     LL_FSE_LOG, _PREDEF_DT_LL, prev.dt_ll)
+    pos += c
+    nxt.dt_of, c = _build_seq_dtable(of_mode, data[pos:], MAX_OFF_CODE,
+                                     OF_FSE_LOG, _PREDEF_DT_OF, prev.dt_of)
+    pos += c
+    nxt.dt_ml, c = _build_seq_dtable(ml_mode, data[pos:], MAX_ML_CODE,
+                                     ML_FSE_LOG, _PREDEF_DT_ML, prev.dt_ml)
+    pos += c
+    return nb_seq, nxt, pos
+
+
+def decode_sequences(bitstream: bytes, nb_seq: int, st: FseDecodeState
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Decode nb_seq (litLength, offBase/Offset_Value, matchLength) triples.
+
+    Spec "Decoding Sequences": states init LL,OF,ML; per sequence read OF
+    extra bits, then ML, then LL; state updates LL,ML,OF (skipped for last).
+    Repcode resolution happens at execution, not here; offBase is returned raw.
+    """
+    dt_ll, dt_of, dt_ml = st.dt_ll, st.dt_of, st.dt_ml
+    assert dt_ll is not None and dt_of is not None and dt_ml is not None
+    br = BitReader(bitstream)
+    s_ll = br.read(dt_ll.table_log)
+    s_of = br.read(dt_of.table_log)
+    s_ml = br.read(dt_ml.table_log)
+    if br.overflowed:
+        raise Corruption("sequence bitstream too short for initial states")
+
+    lls = np.zeros(nb_seq, dtype=np.int64)
+    ofs = np.zeros(nb_seq, dtype=np.int64)
+    mls = np.zeros(nb_seq, dtype=np.int64)
+    for i in range(nb_seq):
+        ll_code_v = int(dt_ll.symbol[s_ll])
+        of_code_v = int(dt_of.symbol[s_of])
+        ml_code_v = int(dt_ml.symbol[s_ml])
+        if of_code_v > MAX_OFF_CODE:
+            raise Corruption("offset code too large")
+        of_extra = br.read(of_code_v)
+        off_base = (1 << of_code_v) + of_extra
+        ml = int(ML_BASE[ml_code_v]) + br.read(int(ML_BITS[ml_code_v]))
+        ll = int(LL_BASE[ll_code_v]) + br.read(int(LL_BITS[ll_code_v]))
+        if br.overflowed:
+            raise Corruption("sequence bitstream over-read")
+        lls[i] = ll
+        ofs[i] = off_base
+        mls[i] = ml
+        if i < nb_seq - 1:
+            s_ll = int(dt_ll.new_state[s_ll]) + br.read(int(dt_ll.nb_bits[s_ll]))
+            s_ml = int(dt_ml.new_state[s_ml]) + br.read(int(dt_ml.nb_bits[s_ml]))
+            s_of = int(dt_of.new_state[s_of]) + br.read(int(dt_of.nb_bits[s_of]))
+            if br.overflowed:
+                raise Corruption("sequence bitstream over-read (state update)")
+    if br.pos != 0:
+        raise Corruption("sequence bitstream not fully consumed")
+    return lls, ofs, mls
