@@ -11,10 +11,12 @@ zstd is an exact codec; the FSE chain also on synthetic table sets, and its
 walk counts against tests/chainmodel.py), drives the level-1 encode of the
 16 MiB corpus through both encode kernels, checks the frame against the CPU
 path's on a 1 MiB prefix, then decodes that frame on the card through both
-decode kernels (phase 6: Huffman lanes and sequence executor, each against
-its plain version, the over-read and depth errors, the fixture frames of
-tests/data/torch_decode) and prints one JSON line of kernel timings before
-its last line:
+decode kernels (phase 6: the Huffman lanes in both layouts, the literal
+pool and the sequence executor, each against its plain version on the
+frame's group and on adversarial inputs, with the kernels' counts; the
+over-read, literal-overrun and depth errors; the fixture frames of
+tests/data/torch_decode)
+and prints one JSON line of kernel timings before its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -163,18 +165,113 @@ def profile_run(fn) -> dict:
     return dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3, by_name=by_name)
 
 
+def device_ms(fn, reps: int = 3) -> float:
+    """Device busy time of one fn() call (union of its kernels and copies),
+    the mean of reps profiled calls after a warm one. The decode wrappers
+    check their inputs with a host sync before they launch, so events
+    around back-to-back calls would also count host time. Raises if the
+    profiler saw no device activity."""
+    fn()
+    busy = [profile_run(fn)["busy_ms"] for _ in range(reps)]
+    if min(busy) <= 0:
+        raise RuntimeError("the profiler recorded no device activity; "
+                           "device time not measured")
+    return sum(busy) / reps
+
+
+def huf_counts(st) -> str:
+    """Kernel 3's counts over the lanes (huf_decode_stats)."""
+    s = st.cpu()
+    act = s[:, 0] > 0
+    return (f"segments {int(s[:, 0].sum())} (a lane: most {int(s[:, 0].max())}"
+            f"), lanes repaired {int((s[:, 1] > 0).sum())} of "
+            f"{int(act.sum())}, most repair rounds {int(s[:, 1].max())}, "
+            f"longest speculative walk {int(s[:, 2].max())} steps, critical "
+            f"path {int(s[:, 3].max())} steps")
+
+
+def exec_counts(st) -> str:
+    """Kernel 4's counts (exec_sequences_stats): hops, passes and their
+    worklists, the pointers each out-of-place round changes, phase times."""
+    from zstd_tpu_torch.ops.decode_dev import EXEC_CLASSES
+    s = st.tolist()
+    r, passes = s[0], s[3]
+    cls = s[EXEC_CLASSES:EXEC_CLASSES + 32]
+    changed = [sum(cls[c + 1:]) for c in range(r)]
+    return (f"most hops {s[2]}, {passes} passes, worklist per pass "
+            f"{s[4:4 + passes]}; pointers changed per round {changed}; "
+            f"phases place/passes/gather {s[-4] / 1e3:.1f}/"
+            f"{s[-3] / 1e3:.1f}/{s[-2] / 1e3:.1f} us (grid {s[-1]})")
+
+
+def check_huf(dd, a: dict, label: str) -> int:
+    """Kernel 3 in both layouts against huf_decode_plain and
+    assemble_pool(huf_decode_plain(...)) on the lanes of `a` (tensors on the
+    card); the pool is compared below nb_lit. Returns max_abs_err."""
+    import torch
+    lane = [a[k] for k in ("sb", "start_bits", "n_syms", "lut_sym",
+                           "lut_len", "lane_tab")]
+    segs = [a[k] for k in ("seg_start", "seg_lane", "seg_src", "seg_is_dev",
+                           "host_lits")]
+    ms = a["max_syms"]
+    syms, final, st = dd.huf_decode_stats(*lane, ms)
+    pool, pfinal = dd.literal_pool(*lane, *segs, a["nb_lit"], ms, a["npad"])
+    torch.cuda.synchronize()
+    want_syms, want_final = dd.huf_decode_plain(*lane, ms)
+    want_pool = dd.assemble_pool(want_syms, *segs, a["npad"])
+    n = a["n_syms"].clamp(0, ms)[:, None]
+    below = torch.arange(ms, device=syms.device)[None, :] < n
+    nb = a["nb_lit"]
+    err = max(int(((syms.long() - want_syms.long()).abs() * below).max()),
+              max_abs_err((final, pfinal), (want_final, want_final)),
+              max_abs_err((pool[:nb],), (want_pool[:nb],)))
+    print(f"huf_decode {label}: max_abs_err {err} (syms below n_syms, final,"
+          f" pool below nb_lit {nb}); {huf_counts(st)}", flush=True)
+    assert err == 0, f"huf_decode kernel disagrees with its plain ({label})"
+    return err
+
+
+def check_exec(dd, lits, ll, ml, off, nb_seq, out_len, n, hist, rounds,
+               label: str):
+    """Kernel 4 against exec_prepare + exec_resolve_plain on out, ok and the
+    rounds run. Returns (max_abs_err, out, stats)."""
+    import torch
+    out, ok, r, st = dd.exec_sequences_stats(lits, ll, ml, off, nb_seq,
+                                             out_len, n, hist, rounds)
+    torch.cuda.synchronize()
+    ptr, in_match, placed = dd.exec_prepare(lits, ll, ml, off, nb_seq,
+                                            out_len, n)
+    want, want_ok, want_r = dd.exec_resolve_plain(ptr, in_match, placed,
+                                                  hist, out_len, rounds)
+    err = max_abs_err((out,), (want,))
+    same = bool(ok) == bool(want_ok) and int(r) == want_r
+    print(f"exec_seq {label}: max_abs_err {err}, ok {bool(ok)}/"
+          f"{bool(want_ok)}, rounds {int(r)}/{want_r} (kernel/plain); "
+          f"{exec_counts(st)}", flush=True)
+    assert err == 0 and same, f"exec_seq kernel disagrees ({label})"
+    return err, out, st
+
+
 def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
     """Phase 6: the device decode of the main path's frame through both
     decode kernels, each kernel against its plain version on that frame's
-    whole group, the error paths, the fixture frames, and the timings.
-    Returns the two kernels' entries of the kernels line."""
+    whole group and on adversarial inputs, the error paths, the fixture
+    frames, and the timings. Returns the two kernels' entries of the
+    kernels line."""
     import hashlib
 
+    import numpy as np
     import torch
-    from decodecases import nested_data, underrun_frame
+    from decodecases import (adversarial_group, exec_case, nested_data,
+                             overrun_frame, underrun_frame)
+    from hufmodel import decode_lanes
     from zstd_tpu_torch import _kernels, device_decoder, pipeline
     from zstd_tpu_torch.errors import Corruption
     from zstd_tpu_torch.ops import decode_dev as dd
+
+    def on_card(g: dict) -> dict:
+        return {k: torch.from_numpy(v).to(dev) if hasattr(v, "shape") else v
+                for k, v in g.items()}
 
     # ---- the main path: decode the 16 MiB frame --------------------------
     for k in _kernels.LAUNCHES:
@@ -205,8 +302,8 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
     parse_ms = (time.perf_counter() - t0) * 1e3
     pfs = [pf for _, pf, _ in jobs]
     g = device_decoder._group_inputs(pfs)
-    a = {k: torch.from_numpy(v).to(dev) if hasattr(v, "shape") else v
-         for k, v in g.items()}
+    g["npad"] = g["n"]
+    a = on_card(g)
     nl = g["n_lanes"]
     nsy = g["n_syms"]
     print(f"decode group: {nl} lanes (bucket {g['sb'].shape[0]}), byte_cap "
@@ -215,61 +312,99 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
           f"{g['out_len']} (bucket {g['n']}); host parse {parse_ms:.1f} ms",
           flush=True)
 
-    # ---- kernel 3 vs plain ---------------------------------------------------
-    h_args = (a["sb"], a["start_bits"], a["n_syms"], a["lut_sym"],
-              a["lut_len"], a["lane_tab"], g["max_syms"])
-    syms_k, final_k = dd.huf_decode_streams(*h_args)
-    t0 = time.perf_counter()
-    syms_p, final_p = dd.huf_decode_plain(*h_args)
-    torch.cuda.synchronize()
-    h_plain_ms = (time.perf_counter() - t0) * 1e3
-    col = torch.arange(g["max_syms"], device=dev)[None, :]
-    mask = col < a["n_syms"][:, None]
-    err_h = max(int(((syms_k.long() - syms_p.long()).abs() * mask).max()),
-                int((final_k - final_p).abs().max()))
+    # ---- kernel 3 vs plain, both layouts -----------------------------------
+    lane = [a[k] for k in ("sb", "start_bits", "n_syms", "lut_sym",
+                           "lut_len", "lane_tab")]
+    segs = [a[k] for k in ("seg_start", "seg_lane", "seg_src", "seg_is_dev",
+                           "host_lits")]
+    err_h = check_huf(dd, a, "16 MiB group")
+    _, final_k, st = dd.huf_decode_stats(*lane, g["max_syms"])
     assert int(final_k[:nl].abs().max()) == 0, "a lane did not end at bit 0"
-    print(f"huf_decode: max_abs_err {err_h} on syms[:, :n_syms] and final",
-          flush=True)
-    assert err_h == 0, "huf_decode kernel disagrees with huf_decode_plain"
-    h_ms = cuda_ms(lambda: dd.huf_decode_streams(*h_args))
+    # the kernel's counts against tests/hufmodel.py on four lanes
+    pick = np.array([0, 1, nl // 2, nl - 1])
+    _, _, m_counts = decode_lanes(
+        *(g[k][pick] for k in ("sb", "start_bits", "n_syms")), g["lut_sym"],
+        g["lut_len"], g["lane_tab"][pick], g["max_syms"])
+    k_counts = st[torch.from_numpy(pick).to(dev)].cpu().numpy()
+    print(f"  lanes {pick.tolist()}: kernel counts {k_counts.tolist()}, "
+          f"model {m_counts.tolist()}", flush=True)
+    assert (k_counts == m_counts).all(), "huf_decode counts differ from model"
+    adv = on_card(adversarial_group(g))
+    err_h = max(err_h, check_huf(dd, adv, "adversarial lanes"))
+    # the decode path's layout: literal_pool (the lane-base scatter, the
+    # pool's memset, pool_host_kernel and huf_lane_kernel)
+    p_ms = device_ms(lambda: dd.literal_pool(*lane, *segs, g["nb_lit"],
+                                             g["max_syms"], g["n"]))
+    h_ms = device_ms(lambda: dd.huf_decode_streams(*lane, g["max_syms"]))
+    p_plain_ms = host_ms(lambda: dd.assemble_pool(
+        dd.huf_decode_plain(*lane, g["max_syms"])[0], *segs, g["n"]))
+    # bytes of literal_pool, each once: the streams, start/n_syms/table of
+    # each lane and its final, the tables the lanes use, the segments, the
+    # host literals read, the pool's nb_lit bytes written
+    nb_lit = g["nb_lit"]
     stream_bytes = sum(len(s) for pf in pfs for s, _ in pf.lanes)
-    h_bytes = stream_bytes + 16 * nl + nbytes(a["lut_sym"], a["lut_len"]) \
-        + int(nsy.sum())
+    n_tabs = len(set(g["lane_tab"][:nl].tolist()))
+    n_segs = int((g["seg_start"] < g["n"]).sum())
+    host_bytes = nb_lit - int(nsy[:nl].sum())
+    h_bytes = stream_bytes + 16 * nl + 2 * (1 << dd.MAX_TLOG) * n_tabs \
+        + 13 * n_segs + host_bytes + nb_lit
     h_bound = h_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"huf_decode: kernel {h_ms:.3f} ms plain {h_plain_ms:.1f} ms bound "
-          f"{h_bound * 1e3:.2f} us ({h_bytes} B); longest lane "
-          f"{int(nsy.max())} dependent steps", flush=True)
+    print(f"huf_decode: literal_pool {p_ms:.4f} ms device (the decode's "
+          f"layout: two kernels, a scatter and a memset), huf_decode_streams "
+          f"{h_ms:.4f} ms device, plain literal_pool {p_plain_ms:.1f} ms, "
+          f"bound {h_bound * 1e3:.2f} us ({h_bytes} B: {stream_bytes} B of "
+          f"streams, {n_tabs} tables, {n_segs} segments, {host_bytes} host "
+          f"literals, {nb_lit} pool bytes)", flush=True)
 
     # ---- kernel 4 vs plain ---------------------------------------------------
-    pool = dd.assemble_pool(syms_k, a["seg_start"], a["seg_lane"],
-                            a["seg_src"], a["seg_is_dev"], a["host_lits"],
-                            g["n"])
-    ptr, in_match, placed = dd.exec_prepare(
-        pool, a["lls"], a["mls"], a["offs"], g["nb_seq"], g["out_len"],
-        g["n"])
     hist = torch.zeros(1, dtype=torch.uint8, device=dev)
-    e_args = (ptr, in_match, placed, hist, g["out_len"])
-    out_k, ok_k, rounds_k = dd.exec_resolve(*e_args)
-    t0 = time.perf_counter()
-    out_p, ok_p, rounds_p = dd.exec_resolve_plain(*e_args)
-    torch.cuda.synchronize()
-    e_plain_ms = (time.perf_counter() - t0) * 1e3
-    err_e = int((out_k.long() - out_p.long()).abs().max())
-    print(f"exec_seq: max_abs_err {err_e}, ok {bool(ok_k)}/{bool(ok_p)}, "
-          f"rounds {int(rounds_k)}/{rounds_p} (kernel/plain)", flush=True)
-    assert err_e == 0 and bool(ok_k) == bool(ok_p) and \
-        int(rounds_k) == rounds_p, "exec_seq kernel disagrees with its plain"
+    pool, _ = dd.literal_pool(*lane, *segs, g["nb_lit"], g["max_syms"],
+                              g["n"])
+    e_args = (pool, a["lls"], a["mls"], a["offs"], g["nb_seq"],
+              g["out_len"], g["n"], hist)
+    err_e, out_k, e_st = check_exec(dd, *e_args, None, "16 MiB group")
     assert out_k[:len(corpus)].cpu().numpy().tobytes() == corpus
-    e_ms = cuda_ms(lambda: dd.exec_resolve(*e_args))
-    n = g["n"]
-    e_bytes = nbytes(ptr, in_match, placed, hist) + n + 1
+    for seed, h, cut in ((1, 64, 100), (2, 300, 7)):
+        lits, ll, ml, off, nb_seq, out_len, hist_np = exec_case(
+            seed, 1 << 20, h, cut)
+        c = [torch.from_numpy(x).to(dev) for x in (lits, ll, ml, off,
+                                                   hist_np)]
+        err_e = max(err_e, check_exec(
+            dd, c[0], c[1], c[2], c[3], nb_seq, out_len, 1 << 20, c[4], None,
+            f"1 MiB random, history {h}, out_len total - {cut}")[0])
+    nested = nested_data()
+    ng = on_card(device_decoder._group_inputs([device_decoder._parse_frame(
+        pipeline.compress(nested, level=1, device=dev), 0, 31)]))
+    npool, _ = dd.literal_pool(*(ng[k] for k in (
+        "sb", "start_bits", "n_syms", "lut_sym", "lut_len", "lane_tab",
+        "seg_start", "seg_lane", "seg_src", "seg_is_dev", "host_lits")),
+        ng["nb_lit"], ng["max_syms"], ng["n"])
+    for rounds in (1, 2, 3):
+        err_e = max(err_e, check_exec(
+            dd, npool, ng["lls"], ng["mls"], ng["offs"], ng["nb_seq"],
+            ng["out_len"], ng["n"], hist, rounds,
+            f"nested chains, round limit {rounds}")[0])
+    e_ms = device_ms(lambda: dd.exec_sequences(*e_args))
+
+    def plain_exec():
+        ptr, in_match, placed = dd.exec_prepare(*e_args[:-1])
+        return dd.exec_resolve_plain(ptr, in_match, placed, hist,
+                                     g["out_len"])
+
+    e_plain_ms = host_ms(plain_exec)
+    # bytes of exec_sequences, each once: the literals the sequences read
+    # (the sum of their literal lengths), 12 a sequence, the history, the
+    # out_len bytes of output
+    lit_total = int(g["lls"].sum(dtype=np.int64))
+    e_bytes = lit_total + 12 * g["nb_seq"] + nbytes(hist) + g["out_len"]
     e_bound = e_bytes / HBM_BYTES_PER_S * 1e3
-    round_bytes = 12 * n          # read, gather and write i32 pointers
-    print(f"exec_seq: kernel {e_ms:.3f} ms plain {e_plain_ms:.1f} ms bound "
-          f"{e_bound * 1e3:.1f} us (inputs and outputs once, {e_bytes} B); "
-          f"{int(rounds_k)} rounds x {round_bytes} B = "
-          f"{int(rounds_k) * round_bytes / HBM_BYTES_PER_S * 1e6:.1f} us",
-          flush=True)
+    s = e_st.tolist()
+    wl_bytes = 4 * s[4] + 12 * g["n"] + sum(40 * x for x in s[4:4 + s[3]])
+    print(f"exec_seq: exec_sequences {e_ms:.4f} ms device, plain "
+          f"{e_plain_ms:.1f} ms, bound {e_bound * 1e3:.2f} us ({e_bytes} B: "
+          f"{lit_total} literals, {g['nb_seq']} sequences, history, "
+          f"{g['out_len']} out); pointers and worklists about {wl_bytes} B "
+          f"= {wl_bytes / HBM_BYTES_PER_S * 1e6:.1f} us", flush=True)
 
     # ---- the device program of one already-parsed group ------------------
     device_decoder._dispatch_group(pfs, dev)          # warm
@@ -284,18 +419,43 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
     group_host_ms = (time.perf_counter() - t0) * 1e3
     dev_ms = start.elapsed_time(end)
     assert bool(res[1])
+    # its parts: the host packing alone, and the fused decode between
+    # events with its inputs already on the card (the wrappers' checks
+    # included)
+    t0 = time.perf_counter()
+    device_decoder._group_inputs(pfs)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    fused_args = {k: v for k, v in a.items() if k != "npad"}
+    start.record()
+    dd.fused_frame_decode(**fused_args)
+    end.record()
+    torch.cuda.synchronize()
+    fused_ms = start.elapsed_time(end)
     print(f"decode device program: {dev_ms:.1f} ms between events around "
           f"_dispatch_group ({group_host_ms:.1f} ms host wall, inputs "
-          f"packed and uploaded)", flush=True)
+          f"packed and uploaded; _group_inputs alone {pack_ms:.1f} ms on "
+          f"the host, fused_frame_decode of inputs on the card {fused_ms:.1f}"
+          f" ms between events); 132.4 ms with the scans (PERF.md)",
+          flush=True)
     prof = profile_run(lambda: device_decoder.device_decompress(frame,
                                                                 device=dev))
     if prof["busy_ms"] > 0:
         print(f"decode profile: wall {prof['wall_ms']:.1f} ms, device busy "
               f"{prof['busy_ms']:.1f} ms, idle share "
-              f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}", flush=True)
+              f"{1 - prof['busy_ms'] / prof['wall_ms']:.5f}", flush=True)
         top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:10]
         for name, ms in top:
             print(f"  {ms:9.3f} ms  {name[:100]}")
+        # by kernel name, as PR 4's decode profile gave huf_decode_kernel
+        # 8.682 ms and exec_seq_kernel 0.827 ms (PERF.md)
+        for kern in ("huf_lane_kernel", "pool_host_kernel",
+                     "exec_seq_kernel"):
+            ms = sum(v for k, v in prof["by_name"].items() if kern in k)
+            print(f"  {kern}: {ms:.4f} ms of device time", flush=True)
+        # torch's cummax runs as a scan "with indices"
+        scans = [k for k in prof["by_name"]
+                 if "cummax" in k.lower() or "with_indices" in k]
+        assert not scans, f"the decode still runs {scans}"
     else:
         print("decode profile: the profiler recorded no device activity; "
               "device busy time not measured", flush=True)
@@ -312,7 +472,14 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
             raise AssertionError(f"under-run not detected on {where}")
     _, _, ok = device_decoder.device_decompress_resident(bad, device=dev)
     assert not bool(ok) and ok.error_kind() == "over-read"
-    nested = nested_data()
+    over = overrun_frame(pipeline.compress(prefix, level=1, device=dev))
+    for where in (dev, "cpu"):
+        try:
+            device_decoder.device_decompress(over, device=where)
+        except Corruption as e:
+            assert "literal buffer overrun" in str(e), e
+        else:
+            raise AssertionError(f"literal overrun not refused on {where}")
     nframe = pipeline.compress(nested, level=1, device=dev)
     assert device_decoder.device_decompress(nframe, device=dev) == nested
     saved, dd.EXEC_ROUNDS = dd.EXEC_ROUNDS, 2
@@ -328,8 +495,9 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
     d_gpu = device_decoder.device_decompress(f_ck, device=dev)
     d_cpu = device_decoder.device_decompress(f_ck, device="cpu")
     assert d_gpu == d_cpu == prefix, "1 MiB prefix: cuda and cpu decodes"
-    print("decode checks: under-run raises over-read on cuda and cpu; "
-          "depth limit 2 gives exec-depth; 1 MiB checksum frame cuda == cpu",
+    print("decode checks: under-run raises over-read and literal lengths past "
+          "the literals raise literal buffer overrun on cuda and cpu; depth "
+          "limit 2 gives exec-depth; 1 MiB checksum frame cuda == cpu",
           flush=True)
 
     # ---- fixture frames of other encoders ------------------------------------
@@ -349,9 +517,9 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
     return [
         dict(name="huf_decode", route="cuda",
              source="zstd_tpu_torch/csrc/huf_decode.cu",
-             replaces="zstd_tpu/ops/decode_dev.py:59",
-             launches=launches["huf_decode"], max_abs_err=err_h, ms=h_ms,
-             plain_ms=h_plain_ms, bound_ms=h_bound, bound_by="bytes",
+             replaces="zstd_tpu/ops/decode_dev.py:59 and :93",
+             launches=launches["huf_decode"], max_abs_err=err_h, ms=p_ms,
+             plain_ms=p_plain_ms, bound_ms=h_bound, bound_by="bytes",
              library_ms=None),
         dict(name="exec_seq", route="cuda",
              source="zstd_tpu_torch/csrc/exec_seq.cu",
@@ -580,7 +748,7 @@ def main() -> int:
     if prof["busy_ms"] > 0:
         print(f"profile: wall {prof['wall_ms']:.1f} ms, device busy "
               f"{prof['busy_ms']:.1f} ms, idle share "
-              f"{1 - prof['busy_ms'] / prof['wall_ms']:.3f}", flush=True)
+              f"{1 - prof['busy_ms'] / prof['wall_ms']:.5f}", flush=True)
         for kern in ("extract_kernel", "fse_chain_kernel"):
             ms = sum(v for k, v in prof["by_name"].items() if kern in k)
             print(f"  {kern}: {ms:.3f} ms of device time", flush=True)

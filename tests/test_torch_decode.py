@@ -20,7 +20,7 @@ import torch
 import zstd_tpu
 from tests.bigcorpus import big_corpus
 from tests.conftest import gen_mixed, gen_text
-from tests.decodecases import nested_data, underrun_frame
+from tests.decodecases import nested_data, overrun_frame, underrun_frame
 from zstd_tpu import device_decoder as jdec
 from zstd_tpu.errors import ZstdError as JZstdError
 from zstd_tpu.format import huffman as jhuf
@@ -379,6 +379,21 @@ def test_underrun_raises_overread():
     assert nl == jnl
     np.testing.assert_array_equal(final.numpy()[:nl], np.asarray(jfinal)[:nl])
     assert final[0] < 0
+
+
+def test_overrun_raises_in_the_host_parse():
+    """Literal lengths that add up past the block's literal count: the host
+    parse refuses the frame before any device work, so the card and the
+    CPU raise the same Corruption (the executor kernel takes no negative
+    trailing literal count), as the host decoders do."""
+    data = big_corpus(256 * 1024)
+    frame = overrun_frame(tpipe.compress(data, level=1, device="cpu"))
+    with pytest.raises(JZstdError):
+        zstd_tpu.decompress(frame)
+    with pytest.raises(TZstdError, match="literal buffer overrun"):
+        tdec._parse_frame(frame, 0, 31)
+    with pytest.raises(TZstdError, match="literal buffer overrun"):
+        tdec.device_decompress(frame, device="cpu")
 
 
 def test_exec_depth_error_kind(monkeypatch):

@@ -27,8 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns an int: a cudaError_t for
-# the launches, a size in bytes for the others)
+# the launches, a size or a count for the others)
 _SIGNATURES = {
     "extract.cu": {"extract_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _I, _I, _I, _P],
@@ -39,9 +40,15 @@ _SIGNATURES = {
                      "fse_chain_scratch_bytes": [_I],
                      "fse_chain_smem_bytes": [_I]},
     "huf_decode.cu": {"huf_decode_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                            _I, _I, _I, _I, _P]},
-    "exec_seq.cu": {"exec_seq_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _P]},
+                                            _L, _P, _P, _I, _I, _I, _I, _P,
+                                            _P, _P, _P, _I, _I, _L, _P],
+                      "huf_decode_smem_bytes": [_I],
+                      "huf_decode_threads": [_I]},
+    "exec_seq.cu": {"exec_seq_launch": [_P, _I, _P, _P, _P, _P, _I, _P, _P,
+                                        _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                                        _I, _I, _P],
+                    "exec_seq_ctrl_len": [],
+                    "exec_seq_stats_len": []},
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its

@@ -398,6 +398,11 @@ def _parse_frame(data: bytes, pos: int, window_log_max: int) -> _ParsedFrame:
             if nb:
                 lls, obs, mls = sq.decode_sequences(payload[used + c2 :], nb,
                                                     fst)
+                # the executor takes literal lengths that stay within the
+                # block's literals (host mirror: block.py 'literal buffer
+                # overrun'); checked here, on both devices alike
+                if int(lls.sum()) > lit_count:
+                    raise Corruption("literal buffer overrun (device decode)")
                 offs = np.zeros(nb, np.int64)
                 r = reps
                 for i in range(nb):
