@@ -15,8 +15,11 @@ decode kernels (phase 6: the Huffman lanes in both layouts, the literal
 pool and the sequence executor, each against its plain version on the
 frame's group and on adversarial inputs, with the kernels' counts; the
 over-read, literal-overrun and depth errors; the fixture frames of
-tests/data/torch_decode)
-and prints one JSON line of kernel timings before its last line:
+tests/data/torch_decode), and drives the lazy engine (phase 7: the
+chunked-resolve kernel against its plain version, the 16 MiB level-5
+encode with its profile and stage times, the 1 MiB prefix's frames at
+levels 5 and 9 against the CPU path, and the level-5 frame decoded on the
+card), and prints one JSON line of kernel timings before its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -60,6 +63,28 @@ def cuda_ms(fn, reps: int = 5) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 5) -> float:
+    """Device time of one fn() call without its host launch overhead: fn()
+    is captured once into a CUDA graph after a warm call, and the graph's
+    replays are timed with CUDA events (mean of reps)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -141,28 +166,76 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def profile_run(fn) -> dict:
+def profile_run(fn, retries: int = 6) -> dict:
     """Run fn() once under torch.profiler: the host wall time, the device's
     busy time (union of its kernel and copy intervals) and the device time
-    by kernel name, in ms. Busy time is 0 if the profiler saw no device."""
+    by kernel name, in ms. A profiler session on the card now and then
+    records no device activity at all; fn() then runs again in a new
+    session (reported), up to `retries` times. Busy time is 0 if every
+    session saw no device."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(retries + 1):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        if spans:
+            break
+        print(f"  profiler session {attempt + 1} recorded no device "
+              "activity", flush=True)
     busy, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy += max(e - max(s, end), 0)
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
     return dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3, by_name=by_name)
+
+
+def profiled_encode(pipeline, dev, corpus: bytes, level: int) -> None:
+    """One profiled encode of the corpus at `level`: the host halves timed by
+    wrapping them on one compressor, the device's busy time, idle share and
+    the top kernels by device time."""
+    host_s = {}
+
+    def timed(name, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    comp = pipeline.TorchCompressor(level=level, device=dev)
+    for name in ("_build_plans", "_finalize"):
+        setattr(comp, name, timed(name, getattr(comp, name)))
+    def run():
+        host_s.clear()               # a rerun session counts once
+        comp.compress(corpus)
+
+    prof = profile_run(run)
+    print(f"level {level} host: " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in host_s.items()), flush=True)
+    if prof["busy_ms"] <= 0:
+        print(f"level {level} profile: the profiler recorded no device "
+              "activity; device busy time not measured", flush=True)
+        return
+    print(f"level {level} profile: wall {prof['wall_ms']:.1f} ms, device "
+          f"busy {prof['busy_ms']:.1f} ms, idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.5f}", flush=True)
+    for kern in ("extract_kernel", "fse_chain_kernel", "lazy_resolve_kernel"):
+        ms = sum(v for k, v in prof["by_name"].items() if kern in k)
+        print(f"  {kern}: {ms:.3f} ms of device time", flush=True)
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:12]
+    for name, ms in top:
+        print(f"  {ms:9.3f} ms  {name[:100]}")
 
 
 def device_ms(fn, reps: int = 3) -> float:
@@ -530,6 +603,166 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
     ]
 
 
+def lazy_phase(dev, corpus: bytes) -> dict:
+    """Phase 7: the lazy engine. The chunked-resolve kernel against its
+    plain version (the same lockstep in torch ops) on batch 0 at level 5 and
+    on zero, period-4 and random rows, with its active steps a chunk; each
+    stage of the engine on batch 0; the 16 MiB level-5 encode (launches,
+    rate, profile); the 1 MiB prefix's frames at levels 5 and 9 (hash_log
+    21) against the CPU path, and the level-5 one decoded on the card.
+    Returns the kernel's entry of the kernels line."""
+    import numpy as np
+    import torch
+    from zstd_tpu_torch import _kernels, device_decoder, pipeline
+    from zstd_tpu_torch.ops import fastmatch as fm
+    from zstd_tpu_torch.params import get_cparams
+
+    cp = get_cparams(5, len(corpus))
+    mls = min(max(cp.min_match, 4), 8)
+    seq_cap = N_BLOCK // 8
+    arr = np.frombuffer(corpus, np.uint8)
+
+    def candidates(blocks, lens):
+        """(tri, b3, the 8 + 2 candidate rows) of the lazy engine."""
+        tri, b3, tri3, b6 = fm.tri_arrays(blocks)
+        return tri, b3, fm.candidate_rows(
+            fm.hash_f32(tri, tri3, b3, b6, cp.hash_log, mls), lens,
+            fm.LAZY_DEPTH) + fm.candidate_rows(
+            fm.hash_f32(tri, tri3, b3, b6, cp.hash_log, 4), lens, 2)
+
+    def resolve_inputs(blocks, lens):
+        tri, b3, rows = candidates(blocks, lens)
+        mlen, cand = fm.lazy_mlen(tri, b3, rows, lens)
+        return mlen, fm.next_matchable(mlen)
+
+    # ---- kernel vs plain: batch 0 and three synthetic rows ---------------
+    rng = np.random.default_rng(0)
+    b0 = torch.from_numpy(arr[:32 * N_BLOCK].reshape(32, N_BLOCK).copy()).to(dev)
+    lens = torch.full((32,), N_BLOCK, dtype=torch.int32, device=dev)
+    cases = {"batch 0": (b0, lens),
+             "zero row": np.zeros(N_BLOCK, np.uint8),
+             "period-4 row": np.tile(rng.integers(0, 256, 4, dtype=np.uint8),
+                                     N_BLOCK // 4),
+             "random row": rng.integers(0, 256, N_BLOCK, dtype=np.uint8)}
+    err = 0
+    for name, case in cases.items():
+        if name != "batch 0":
+            case = (torch.from_numpy(case[None].copy()).to(dev), lens[:1])
+        m, x = resolve_inputs(*case)
+        (yp, yl), steps = fm.resolve_stats(m, x)
+        torch.cuda.synchronize()
+        want_steps = torch.empty_like(steps)
+        want = fm.resolve_plain(m, x, want_steps)
+        e = max_abs_err((yp, yl, steps), (*want, want_steps))
+        print(f"lazy_resolve {name}: max_abs_err {e} (yp, yl, steps); most "
+              f"active steps a chunk {int(steps.max())} of "
+              f"{fm.RESOLVE_STEPS}, {int((yl > 0).sum())} matches taken",
+              flush=True)
+        assert e == 0, f"lazy_resolve kernel disagrees with its plain ({name})"
+        err = max(err, e)
+    tri, b3, rows = candidates(b0, lens)
+    mlen, cand = fm.lazy_mlen(tri, b3, rows, lens)
+    nxt = fm.next_matchable(mlen)
+    r_ms = cuda_ms(lambda: fm.resolve(mlen, nxt))
+    r_plain_ms = host_ms(lambda: fm.resolve_plain(mlen, nxt))
+    L = N_BLOCK // fm.RESOLVE_CHUNK
+    r_bytes = 32 * N_BLOCK * 8 + 32 * L * fm.RESOLVE_STEPS * 8
+    r_bound = r_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"lazy_resolve batch 0: kernel {r_ms:.4f} ms, plain {r_plain_ms:.1f}"
+          f" ms, bound {r_bound * 1e3:.2f} us ({r_bytes} B: mlen and nxt "
+          f"read, yp and yl written)", flush=True)
+
+    # ---- the engine's stages on batch 0 ------------------------------------
+    yp, yl = fm.resolve(mlen, nxt)
+    comp = fm.compact(yp, yl, cand, seq_cap, N_BLOCK)
+    rep = fm.rep_rewrite(tri, *comp, N_BLOCK)
+    merged = fm.merge_chains(comp[0], comp[1], rep, comp[3], seq_cap, N_BLOCK)
+    stages = {
+        "tri_arrays + 2 hashes + 10 candidate rows":
+            lambda: candidates(b0, lens),
+        "lazy_mlen (10 rows, gains, deferral)":
+            lambda: fm.lazy_mlen(tri, b3, rows, lens),
+        "next_matchable": lambda: fm.next_matchable(mlen),
+        "resolve (kernel)": lambda: fm.resolve(mlen, nxt),
+        "compact": lambda: fm.compact(yp, yl, cand, seq_cap, N_BLOCK),
+        "rep_rewrite": lambda: fm.rep_rewrite(tri, *comp, N_BLOCK),
+        "merge_chains": lambda: fm.merge_chains(comp[0], comp[1], rep,
+                                                comp[3], seq_cap, N_BLOCK),
+        "finish_sequences": lambda: fm.finish_sequences(
+            b0, tri, *merged, lens, seq_cap),
+        "stage A (_analyze, lazy)": lambda: pipeline._analyze(
+            b0, lens, cp.hash_log, mls, seq_cap, "lazy"),
+    }
+    # most stages are hundreds of small launches, enqueued slower than the
+    # card runs them: device time (a CUDA graph's replay) and host wall of
+    # one eager call apart
+    stage_ms = {name: graph_ms(fn) for name, fn in stages.items()}
+    wall_ms = {name: host_ms(fn) for name, fn in stages.items()}
+    print("lazy engine stages, batch 0 (ms device / ms host wall): "
+          + ", ".join(f"{k} {stage_ms[k]:.4f} / {wall_ms[k]:.2f}"
+                      for k in stages), flush=True)
+    # byte bounds of the two JAX while_loops ported as fixed-pass torch ops,
+    # each input read once and each output written once
+    fin = fm.finish_sequences(b0, tri, *merged, lens, seq_cap)
+    bounds = {"rep_rewrite": nbytes(tri, *comp, rep),
+              "finish_sequences": nbytes(b0, tri, *merged, lens,
+                                         *fin.values())}
+    for name, nb in bounds.items():
+        print(f"  {name}: {stage_ms[name]:.4f} ms, bound "
+              f"{nb / HBM_BYTES_PER_S * 1e6:.2f} us ({nb} B)", flush=True)
+    print(f"  nb_seq (first 8 blocks) {merged[3][:8].tolist()}", flush=True)
+
+    # ---- the main path at level 5 -----------------------------------------
+    pipeline.compress(corpus, level=5, device=dev)            # warm
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    times = []
+    t0 = time.perf_counter()
+    frame = pipeline.compress(corpus, level=5, device=dev)
+    times.append(time.perf_counter() - t0)
+    launches = dict(_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    frame2 = pipeline.compress(corpus, level=5, device=dev)
+    times.append(time.perf_counter() - t0)
+    assert frame2 == frame, "two level-5 runs gave different frames"
+    print(f"level 5: {len(corpus)} B -> {len(frame)} B, ratio "
+          f"{len(corpus) / len(frame):.4f}, "
+          f"{len(corpus) / min(times) / 1e6:.2f} MB/s (best of 2: "
+          f"{times[0]:.3f} s, {times[1]:.3f} s), launches {launches}",
+          flush=True)
+    for k in ("lazy_resolve", "fse_chain"):
+        assert launches[k] > 0, f"kernel {k} was not launched at level 5"
+    assert frame_blocks(frame) == len(corpus) // N_BLOCK
+    stage_mbps = pipeline.TorchCompressor(
+        level=5, device=dev).device_stage_mbps(corpus)
+    print(f"level 5 device_stage_mbps: {stage_mbps:.2f}", flush=True)
+    profiled_encode(pipeline, dev, corpus, 5)
+
+    # ---- the 1 MiB prefix: cuda == cpu, and decoded on the card ---------
+    prefix = corpus[:PREFIX_BYTES]
+    for level in (5, 9):
+        f_gpu = pipeline.compress(prefix, level=level, checksum=True,
+                                  device=dev)
+        f_cpu = pipeline.compress(prefix, level=level, checksum=True,
+                                  device="cpu")
+        hl = get_cparams(level, len(prefix)).hash_log
+        assert f_gpu == f_cpu, f"level {level}: cuda and cpu frames differ"
+        print(f"1 MiB prefix, level {level} (hash_log {hl}): cuda frame == "
+              f"cpu frame ({len(f_gpu)} B)", flush=True)
+        if level == 5:
+            out = device_decoder.device_decompress(f_gpu, device=dev)
+            assert out == prefix, "level-5 frame: device decode differs"
+            print("  decoded on the card by device_decompress: == prefix",
+                  flush=True)
+
+    return dict(name="lazy_resolve", route="cuda",
+                source="zstd_tpu_torch/csrc/lazy_resolve.cu",
+                replaces="zstd_tpu/ops/fastmatch.py:179",
+                launches=launches["lazy_resolve"], max_abs_err=err, ms=r_ms,
+                plain_ms=r_plain_ms, bound_ms=r_bound, bound_by="bytes",
+                library_ms=None)
+
+
 def main() -> int:
     signal.alarm(1150)             # hard deadline: the default action exits
     import numpy as np
@@ -728,36 +961,7 @@ def main() -> int:
     print(f"device_stage_mbps: {stage_mbps:.2f}", flush=True)
 
     # ---- 5. where the main path's time goes (one profiled run) ----------
-    # the host halves are timed by wrapping them on one compressor
-    host_s = {}
-
-    def timed(name, fn):
-        def run(*args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
-    prof_comp = pipeline.TorchCompressor(level=1, device=dev)
-    for name in ("_build_plans", "_finalize"):
-        setattr(prof_comp, name, timed(name, getattr(prof_comp, name)))
-    prof = profile_run(lambda: prof_comp.compress(corpus))
-    print("host: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
-                               for k, v in host_s.items()), flush=True)
-    if prof["busy_ms"] > 0:
-        print(f"profile: wall {prof['wall_ms']:.1f} ms, device busy "
-              f"{prof['busy_ms']:.1f} ms, idle share "
-              f"{1 - prof['busy_ms'] / prof['wall_ms']:.5f}", flush=True)
-        for kern in ("extract_kernel", "fse_chain_kernel"):
-            ms = sum(v for k, v in prof["by_name"].items() if kern in k)
-            print(f"  {kern}: {ms:.3f} ms of device time", flush=True)
-        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:12]
-        for name, ms in top:
-            print(f"  {ms:9.3f} ms  {name[:100]}")
-    else:
-        print("profile: the profiler recorded no device activity; device "
-              "busy time not measured", flush=True)
+    profiled_encode(pipeline, dev, corpus, 1)
 
     kernels = [
         dict(name="extract", route="cuda",
@@ -776,6 +980,10 @@ def main() -> int:
 
     # ---- 6. device decode of the main path's frame ------------------------
     kernels += decode_phase(dev, corpus, frame, root)
+
+    # ---- 7. the lazy engine: level 5 ---------------------------------------
+    kernels.append(lazy_phase(dev, corpus))
+    print(card_line(), flush=True)       # again, beside the numbers below
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,15 @@ def overrun_frame(frame: bytes) -> bytes:
     return bytes(bad)
 
 
+def repeated_pieces(n: int = 200_000, seed: int = 0) -> bytes:
+    """n bytes of 48-byte random pieces, each repeated once: a level-1 frame
+    of it has raw literals (random bytes do not compress) and one match of
+    48 bytes at offset 48 a piece."""
+    rng = np.random.default_rng(seed)
+    pieces = rng.integers(0, 256, (n // 96 + 1, 48), dtype=np.uint8)
+    return np.concatenate([pieces, pieces], axis=1).reshape(-1)[:n].tobytes()
+
+
 def nested_data() -> bytes:
     """101 chunks of 256 bytes, each the previous one with one byte changed:
     its matches copy the previous chunk, so dependency chains run up to 100

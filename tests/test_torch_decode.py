@@ -20,7 +20,8 @@ import torch
 import zstd_tpu
 from tests.bigcorpus import big_corpus
 from tests.conftest import gen_mixed, gen_text
-from tests.decodecases import nested_data, overrun_frame, underrun_frame
+from tests.decodecases import (nested_data, overrun_frame, repeated_pieces,
+                               underrun_frame)
 from zstd_tpu import device_decoder as jdec
 from zstd_tpu.errors import ZstdError as JZstdError
 from zstd_tpu.format import huffman as jhuf
@@ -394,6 +395,44 @@ def test_overrun_raises_in_the_host_parse():
         tdec._parse_frame(frame, 0, 31)
     with pytest.raises(TZstdError, match="literal buffer overrun"):
         tdec.device_decompress(frame, device="cpu")
+
+
+def _first_literals_type(frame: bytes) -> int:
+    """Literals block type of the frame's first compressed block."""
+    fhd = frame[4]
+    single = bool(fhd & 0x20)
+    pos = 5 + (0 if single else 1) + (0, 1, 2, 4)[fhd & 3] + \
+        (1 if single else 0, 2, 4, 8)[fhd >> 6]
+    while (frame[pos] >> 1) & 3 != 2:
+        pos += 3 + int.from_bytes(frame[pos:pos + 3], "little") // 8
+    return frame[pos + 3] & 3
+
+
+@pytest.mark.parametrize("kind, jax_error, jax_resident", [
+    ("huffman", "huffman stream over-read (device decode)",
+     (262_143, False, "over-read")),
+    ("raw", "decoded size mismatch", (199_967, True, None)),
+])
+def test_overrun_pins_both_decoders(kind, jax_error, jax_resident):
+    """A deliberate difference: on literal lengths past a block's literal
+    count zstd_tpu.device_decoder over-reads a Huffman stream, and on raw
+    literals its resident entry returns a wrong result with `ok` True;
+    the port refuses both frames in the host parse, on both entries."""
+    data = big_corpus(256 * 1024) if kind == "huffman" else repeated_pieces()
+    frame = overrun_frame(tpipe.compress(data, level=1, device="cpu"))
+    assert _first_literals_type(frame) == (2 if kind == "huffman" else 0)
+    with pytest.raises(JZstdError) as e:
+        jdec.device_decompress(frame)
+    assert str(e.value) == f"corruption_detected: {jax_error}"
+    assert e.value.code.name == "corruption_detected"
+    _, n, ok = jdec.device_decompress_resident(frame)
+    assert (n, bool(ok), ok.error_kind()) == jax_resident
+    for entry in (tdec.device_decompress, tdec.device_decompress_resident):
+        with pytest.raises(TZstdError) as e:
+            entry(frame, device="cpu")
+        assert str(e.value) == ("corruption_detected: literal buffer overrun "
+                                "(device decode)")
+        assert e.value.code.name == "corruption_detected"
 
 
 def test_exec_depth_error_kind(monkeypatch):

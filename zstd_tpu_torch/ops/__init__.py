@@ -1,4 +1,4 @@
-"""Device ops of the level-1 encode path (torch ops + CUDA kernels)."""
+"""Device ops of the encode and decode paths (torch ops + CUDA kernels)."""
 
 from __future__ import annotations
 

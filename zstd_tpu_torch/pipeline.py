@@ -1,19 +1,24 @@
-"""Level-1 device encode pipeline on PyTorch: the counterpart of
-TpuCompressor in zstd_tpu/pipeline.py with its `pallas` engine.
+"""Device encode pipeline on PyTorch: the counterpart of TpuCompressor in
+zstd_tpu/pipeline.py.
 
 Structure (as in zstd_tpu, built around the host link):
 
   h2d:   raw input blocks + one plan blob per batch (entropy tables).
-  device stage A (`_analyze`): match extraction (torch-op propose + the
-         extract kernel) -> code conversion -> all histograms. Only the
-         i32[B, 1152] stats vector is fetched; the per-sequence arrays stay
-         resident on the device.
+  device stage A (`_analyze`): match extraction -> code conversion -> all
+         histograms. Only the i32[B, 1152] stats vector is fetched; the
+         per-sequence arrays stay resident on the device.
   host:  entropy planning from the histograms alone (`_build_plans`).
   device stage B (`_pack`): FSE (the fse_chain kernel + bit packing) and
          Huffman packing, then compaction of the valid bytes behind an
          i32[B, 7] sizes header.
   d2h:   one prefix of the compact buffer per batch.
   host:  frame assembly (`_finalize`).
+
+Match extraction has three engines, chosen as zstd_tpu chooses them: `lazy`
+(ops/fastmatch.extract_batch_lazy, the chunked-resolve kernel) at every level
+whose strategy is >= 3, else `pallas` (torch-op propose + the extract
+kernel). The `engine` argument ("pallas" or "v3") overrides both, as
+ZSTD_TPU_ENGINE does there; "xla" is not ported (ROADMAP item 10).
 
 Batches run in a window of three: stage A of batch k is enqueued before the
 host plans batch k-2 and assembles batch k-3, and the stats and compact
@@ -22,9 +27,7 @@ waited on by an event.
 
 Every device step runs on the device of the caller's choosing: `cuda` (the
 default; the kernels run there) or `cpu` (the kernels' plain versions). It
-never falls back from one to the other. Levels whose strategy is >= 3 take
-zstd_tpu's lazy device engine, which this package does not have yet: they
-raise NotImplementedError.
+never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from .format.sequences import (FseEntropyState, _fse_bit_cost,
                                write_nbseq_header)
 from .ops.bitpack import bytes_of_words
 from .ops.codes import histogram, seq_codes
+from .ops.fastmatch import extract_batch_lazy, extract_batch_v3
 from .ops.fse_enc import STATE_TABLE_PAD, SYM_PAD, fse_pack
 from .ops.huffman_enc import huf_pack_4x
 from .ops.seqextract import extract_batch
@@ -82,11 +86,19 @@ RESIDENT_DTYPES = dict(llc=torch.int32, mlc=torch.int32, ofc=torch.int32,
 
 
 def _analyze(blocks: torch.Tensor, valid_lens: torch.Tensor, hash_log: int,
-             mls: int, seq_cap: int):
+             mls: int, seq_cap: int, engine: str = "pallas"):
     """Device stage A. blocks u8[B, N], valid_lens i32[B].
-    Returns (stats i32[B, STATS_LEN], resident dict)."""
-    res = extract_batch(blocks, valid_lens, hash_log, mls, seq_cap)
-    lits, nb_lit, nb_seq = res["lits"], res["nb_lit"], res["nb_seq"]
+    Returns (stats i32[B, STATS_LEN], resident dict). The `pallas` engine
+    zeroes `lits` past nb_lit; `lazy` and `v3` gather them through lit_idx,
+    which holds N - 1 there, as zstd_tpu does."""
+    if engine == "pallas":
+        res = extract_batch(blocks, valid_lens, hash_log, mls, seq_cap)
+        lits = res["lits"]
+    else:
+        fn = extract_batch_lazy if engine == "lazy" else extract_batch_v3
+        res = fn(blocks, valid_lens, hash_log, mls, seq_cap)
+        lits = blocks.gather(1, res["lit_idx"].to(torch.int64))
+    nb_lit, nb_seq = res["nb_lit"], res["nb_seq"]
     codes = seq_codes(res["ll"], res["off"], res["ml"], nb_seq)
     n = blocks.shape[1]
     j = torch.arange(n, device=blocks.device)[None, :]
@@ -275,14 +287,29 @@ def _resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass
 class TorchCompressor:
-    """Batched, device-resident block compressor (level 1/2 class)."""
+    """Batched, device-resident block compressor. `engine` None picks the
+    match engine by level; "pallas" or "v3" forces one."""
     level: int = 1
     checksum: bool = False
     batch_blocks: int = 32
     device: str | torch.device | None = None
+    engine: str | None = None
 
     def __post_init__(self):
         self.device = _resolve_device(self.device)
+        if self.engine == "xla":
+            raise NotImplementedError("the xla engine is not ported "
+                                      "(ROADMAP item 10)")
+        if self.engine not in (None, "pallas", "v3"):
+            raise ValueError(f"unknown engine {self.engine!r}: pass None, "
+                             "'pallas' or 'v3'")
+
+    def _engine_for(self, cparams: CParams) -> str:
+        """zstd_tpu's choice: lazy when strategy >= 3, else pallas; an
+        explicit engine overrides both (ZSTD_TPU_ENGINE's role there)."""
+        if self.engine is not None:
+            return self.engine
+        return "lazy" if cparams.strategy >= Strategy.GREEDY else "pallas"
 
     # -- staging helpers -------------------------------------------------
     def _h2d(self, a: np.ndarray):
@@ -315,10 +342,6 @@ class TorchCompressor:
 
     def _setup(self, n: int):
         cparams = get_cparams(self.level, n)
-        if cparams.strategy >= Strategy.GREEDY:
-            raise NotImplementedError(
-                f"level {self.level} (strategy {cparams.strategy}) takes the "
-                "lazy device engine, which zstd_tpu_torch does not have yet")
         block_size = min(1 << cparams.window_log, BLOCK_MAX_SIZE)
         nb_blocks = (n + block_size - 1) // block_size
         batches = [(bs, min(bs + self.batch_blocks, nb_blocks))
@@ -342,7 +365,8 @@ class TorchCompressor:
         lens_d, keep_l = self._h2d(lens)
         stats, resident = _analyze(
             blocks_d, lens_d, cparams.hash_log,
-            min(max(cparams.min_match, 4), 8), max(block_size // 8, 8))
+            min(max(cparams.min_match, 4), 8), max(block_size // 8, 8),
+            self._engine_for(cparams))
         stats_h, ev = self._d2h(stats)
         return lens, stats_h, ev, resident, (keep_b, keep_l)
 
@@ -457,6 +481,7 @@ class TorchCompressor:
         arr = np.frombuffer(data, dtype=np.uint8)
         mls = min(max(cparams.min_match, 4), 8)
         seq_cap = max(block_size // 8, 8)
+        engine = self._engine_for(cparams)
         dev_in = []
         for batch in batches:
             blocks, lens = self._batch_blocks(arr, n, *batch, block_size)
@@ -464,7 +489,7 @@ class TorchCompressor:
                            torch.from_numpy(lens).to(self.device), lens))
 
         def run_a():
-            outs = [_analyze(b, l, cparams.hash_log, mls, seq_cap)
+            outs = [_analyze(b, l, cparams.hash_log, mls, seq_cap, engine)
                     for b, l, _ in dev_in]
             self._sync()
             return outs
@@ -750,9 +775,10 @@ class TorchCompressor:
 
 
 def compress(data: bytes, level: int = 1, checksum: bool = False,
-             batch_blocks: int = 32, device=None) -> bytes:
+             batch_blocks: int = 32, device=None, engine=None) -> bytes:
     """One zstd frame of `data`, encoded through the device pipeline on
-    `device` (default: the CUDA card; raises if there is none)."""
+    `device` (default: the CUDA card; raises if there is none). `engine`
+    None picks the match engine by level; "pallas" or "v3" forces one."""
     return TorchCompressor(level=level, checksum=checksum,
-                           batch_blocks=batch_blocks,
-                           device=device).compress(data)
+                           batch_blocks=batch_blocks, device=device,
+                           engine=engine).compress(data)
