@@ -15,11 +15,12 @@ decode kernels (phase 6: the Huffman lanes in both layouts, the literal
 pool and the sequence executor, each against its plain version on the
 frame's group and on adversarial inputs, with the kernels' counts; the
 over-read, literal-overrun and depth errors; the fixture frames of
-tests/data/torch_decode), and drives the lazy engine (phase 7: the
-chunked-resolve kernel against its plain version, the 16 MiB level-5
-encode with its profile and stage times, the 1 MiB prefix's frames at
-levels 5 and 9 against the CPU path, and the level-5 frame decoded on the
-card), and prints one JSON line of kernel timings before its last line:
+tests/data/torch_decode), and drives the lazy engine (phase 7: the fused
+scoring-and-resolve kernel against its plain chain in the lazy and v3
+modes, the 16 MiB level-5 encode with its profile and stage times, the
+1 MiB prefix's frames at levels 5 and 9 and under the v3 engine against
+the CPU path, and the level-5 frame decoded on the card), and prints one
+JSON line of kernel timings before its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -604,13 +605,16 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
 
 
 def lazy_phase(dev, corpus: bytes) -> dict:
-    """Phase 7: the lazy engine. The chunked-resolve kernel against its
-    plain version (the same lockstep in torch ops) on batch 0 at level 5 and
-    on zero, period-4 and random rows, with its active steps a chunk; each
-    stage of the engine on batch 0; the 16 MiB level-5 encode (launches,
-    rate, profile); the 1 MiB prefix's frames at levels 5 and 9 (hash_log
-    21) against the CPU path, and the level-5 one decoded on the card.
-    Returns the kernel's entry of the kernels line."""
+    """Phase 7: the lazy engine. The fused scoring-and-resolve kernel
+    against its plain chain (lazy_mlen or capped_mlen, next_matchable,
+    resolve_plain) in lazy mode on batch 0 at level 5 and on zero, period-4,
+    random and short-valid_len rows, in v3 mode on batch 0 and the short
+    rows, with its active steps a chunk; its time, bound and the plain
+    chain's; each stage of the engine on batch 0; the 16 MiB level-5 encode
+    (launches, rate, profile); the 1 MiB prefix's frames at levels 5 and 9
+    (hash_log 21) and under the v3 engine against the CPU path, and the
+    level-5 one decoded on the card. Returns the kernel's entry of the
+    kernels line."""
     import numpy as np
     import torch
     from zstd_tpu_torch import _kernels, device_decoder, pipeline
@@ -622,68 +626,76 @@ def lazy_phase(dev, corpus: bytes) -> dict:
     seq_cap = N_BLOCK // 8
     arr = np.frombuffer(corpus, np.uint8)
 
-    def candidates(blocks, lens):
-        """(tri, b3, the 8 + 2 candidate rows) of the lazy engine."""
-        tri, b3, tri3, b6 = fm.tri_arrays(blocks)
-        return tri, b3, fm.candidate_rows(
-            fm.hash_f32(tri, tri3, b3, b6, cp.hash_log, mls), lens,
-            fm.LAZY_DEPTH) + fm.candidate_rows(
-            fm.hash_f32(tri, tri3, b3, b6, cp.hash_log, 4), lens, 2)
+    def candidates(blocks, lens, mode="lazy"):
+        """(tri words, candidate rows [R, B, n]) of an engine."""
+        return fm.engine_rows(blocks, lens, cp.hash_log, mls, mode)
 
-    def resolve_inputs(blocks, lens):
-        tri, b3, rows = candidates(blocks, lens)
-        mlen, cand = fm.lazy_mlen(tri, b3, rows, lens)
-        return mlen, fm.next_matchable(mlen)
-
-    # ---- kernel vs plain: batch 0 and three synthetic rows ---------------
+    # ---- kernel vs plain chain: batch 0 and synthetic rows ---------------
     rng = np.random.default_rng(0)
     b0 = torch.from_numpy(arr[:32 * N_BLOCK].reshape(32, N_BLOCK).copy()).to(dev)
     lens = torch.full((32,), N_BLOCK, dtype=torch.int32, device=dev)
-    cases = {"batch 0": (b0, lens),
-             "zero row": np.zeros(N_BLOCK, np.uint8),
-             "period-4 row": np.tile(rng.integers(0, 256, 4, dtype=np.uint8),
-                                     N_BLOCK // 4),
-             "random row": rng.integers(0, 256, N_BLOCK, dtype=np.uint8)}
+    short = (b0[:2].contiguous(),
+             torch.tensor([100_003, 77_777], dtype=torch.int32, device=dev))
+    cases = {("lazy", "batch 0"): (b0, lens),
+             ("lazy", "zero row"): np.zeros(N_BLOCK, np.uint8),
+             ("lazy", "period-4 row"): np.tile(
+                 rng.integers(0, 256, 4, dtype=np.uint8), N_BLOCK // 4),
+             ("lazy", "random row"): rng.integers(0, 256, N_BLOCK,
+                                                  dtype=np.uint8),
+             ("lazy", "valid_len 100,003 and 77,777 rows"): short,
+             ("v3", "batch 0"): (b0, lens),
+             ("v3", "valid_len 100,003 and 77,777 rows"): short}
     err = 0
-    for name, case in cases.items():
-        if name != "batch 0":
+    for (mode, name), case in cases.items():
+        if not isinstance(case, tuple):
             case = (torch.from_numpy(case[None].copy()).to(dev), lens[:1])
-        m, x = resolve_inputs(*case)
-        (yp, yl), steps = fm.resolve_stats(m, x)
+        blocks, c_lens = case
+        rows = candidates(blocks, c_lens, mode)[1]
+        (yp, yl, cand), steps = fm.select_resolve_stats(blocks, rows, c_lens,
+                                                        mode)
         torch.cuda.synchronize()
         want_steps = torch.empty_like(steps)
-        want = fm.resolve_plain(m, x, want_steps)
-        e = max_abs_err((yp, yl, steps), (*want, want_steps))
-        print(f"lazy_resolve {name}: max_abs_err {e} (yp, yl, steps); most "
-              f"active steps a chunk {int(steps.max())} of "
+        want = fm.select_resolve_plain(blocks, rows, c_lens, mode, want_steps)
+        e = max_abs_err((yp, yl, cand, steps), (*want, want_steps))
+        print(f"lazy_resolve {mode} {name}: max_abs_err {e} (yp, yl, cand, "
+              f"steps); most active steps a chunk {int(steps.max())} of "
               f"{fm.RESOLVE_STEPS}, {int((yl > 0).sum())} matches taken",
               flush=True)
         assert e == 0, f"lazy_resolve kernel disagrees with its plain ({name})"
         err = max(err, e)
-    tri, b3, rows = candidates(b0, lens)
-    mlen, cand = fm.lazy_mlen(tri, b3, rows, lens)
-    nxt = fm.next_matchable(mlen)
-    r_ms = cuda_ms(lambda: fm.resolve(mlen, nxt))
-    r_plain_ms = host_ms(lambda: fm.resolve_plain(mlen, nxt))
-    L = N_BLOCK // fm.RESOLVE_CHUNK
-    r_bytes = 32 * N_BLOCK * 8 + 32 * L * fm.RESOLVE_STEPS * 8
+    tri, rows = candidates(b0, lens)
+    r_args = (b0, rows, lens, "lazy")
+    r_ms = cuda_ms(lambda: fm.select_resolve(*r_args))
+    r_plain_ms = host_ms(lambda: fm.select_resolve_plain(*r_args))
+    r_plain_dev = graph_ms(lambda: fm.select_resolve_plain(*r_args))
+    yp, yl, cand = fm.select_resolve(*r_args)
+    # each input read once, each output written once
+    r_bytes = nbytes(b0, rows, lens, yp, yl, cand)
     r_bound = r_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"lazy_resolve batch 0: kernel {r_ms:.4f} ms, plain {r_plain_ms:.1f}"
-          f" ms, bound {r_bound * 1e3:.2f} us ({r_bytes} B: mlen and nxt "
-          f"read, yp and yl written)", flush=True)
+    print(f"lazy_resolve lazy batch 0: kernel {r_ms:.4f} ms, bound "
+          f"{r_bound * 1e3:.2f} us ({r_bytes} B: blocks, 10 candidate rows, "
+          f"valid_lens read, yp, yl, cand written); plain chain (lazy_mlen, "
+          f"next_matchable, resolve_plain) {r_plain_dev:.4f} ms device (CUDA "
+          f"graph), {r_plain_ms:.1f} ms host wall", flush=True)
+    v_rows = candidates(b0, lens, "v3")[1]
+    v_args = (b0, v_rows, lens, "v3")
+    v_ms = cuda_ms(lambda: fm.select_resolve(*v_args))
+    v_plain_ms = host_ms(lambda: fm.select_resolve_plain(*v_args))
+    vy = fm.select_resolve(*v_args)
+    v_bytes = nbytes(b0, v_rows, lens, *vy[:2])
+    print(f"lazy_resolve v3 batch 0: kernel {v_ms:.4f} ms, bound "
+          f"{v_bytes / HBM_BYTES_PER_S * 1e6:.2f} us ({v_bytes} B), plain "
+          f"chain {v_plain_ms:.1f} ms host wall", flush=True)
 
     # ---- the engine's stages on batch 0 ------------------------------------
-    yp, yl = fm.resolve(mlen, nxt)
     comp = fm.compact(yp, yl, cand, seq_cap, N_BLOCK)
     rep = fm.rep_rewrite(tri, *comp, N_BLOCK)
     merged = fm.merge_chains(comp[0], comp[1], rep, comp[3], seq_cap, N_BLOCK)
     stages = {
         "tri_arrays + 2 hashes + 10 candidate rows":
             lambda: candidates(b0, lens),
-        "lazy_mlen (10 rows, gains, deferral)":
-            lambda: fm.lazy_mlen(tri, b3, rows, lens),
-        "next_matchable": lambda: fm.next_matchable(mlen),
-        "resolve (kernel)": lambda: fm.resolve(mlen, nxt),
+        "select_resolve (kernel: lengths, gains, deferral, nxt, walk)":
+            lambda: fm.select_resolve(*r_args),
         "compact": lambda: fm.compact(yp, yl, cand, seq_cap, N_BLOCK),
         "rep_rewrite": lambda: fm.rep_rewrite(tri, *comp, N_BLOCK),
         "merge_chains": lambda: fm.merge_chains(comp[0], comp[1], rep,
@@ -740,15 +752,17 @@ def lazy_phase(dev, corpus: bytes) -> dict:
 
     # ---- the 1 MiB prefix: cuda == cpu, and decoded on the card ---------
     prefix = corpus[:PREFIX_BYTES]
-    for level in (5, 9):
+    for level, engine in ((5, None), (9, None), (3, "v3")):
         f_gpu = pipeline.compress(prefix, level=level, checksum=True,
-                                  device=dev)
+                                  device=dev, engine=engine)
         f_cpu = pipeline.compress(prefix, level=level, checksum=True,
-                                  device="cpu")
+                                  device="cpu", engine=engine)
         hl = get_cparams(level, len(prefix)).hash_log
-        assert f_gpu == f_cpu, f"level {level}: cuda and cpu frames differ"
-        print(f"1 MiB prefix, level {level} (hash_log {hl}): cuda frame == "
-              f"cpu frame ({len(f_gpu)} B)", flush=True)
+        assert f_gpu == f_cpu, \
+            f"level {level}, engine {engine}: cuda and cpu frames differ"
+        print(f"1 MiB prefix, level {level}, engine {engine or 'lazy'} "
+              f"(hash_log {hl}): cuda frame == cpu frame ({len(f_gpu)} B)",
+              flush=True)
         if level == 5:
             out = device_decoder.device_decompress(f_gpu, device=dev)
             assert out == prefix, "level-5 frame: device decode differs"
@@ -757,7 +771,8 @@ def lazy_phase(dev, corpus: bytes) -> dict:
 
     return dict(name="lazy_resolve", route="cuda",
                 source="zstd_tpu_torch/csrc/lazy_resolve.cu",
-                replaces="zstd_tpu/ops/fastmatch.py:179",
+                replaces="zstd_tpu/ops/fastmatch.py:179, :429, :493-529, "
+                         ":172",
                 launches=launches["lazy_resolve"], max_abs_err=err, ms=r_ms,
                 plain_ms=r_plain_ms, bound_ms=r_bound, bound_by="bytes",
                 library_ms=None)

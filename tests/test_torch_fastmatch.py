@@ -183,8 +183,10 @@ def test_resolve(steps):
 
 def test_resolve_steps_stay_below_the_cap(steps):
     """A chunk's steps with ip < end: every one takes >= 4 bytes or is one
-    of at most 3 steps with end - ip < 4, so at most 131 of the 160."""
-    _, _, out = steps
+    of at most 3 steps with end - ip < 4, so at most 131 of the 160. The
+    kernel's counts come from the fused entry, on CUDA tensors only; the
+    standalone walk runs on the CPU only."""
+    blocks, lens, out = steps
     mlen, nxt = _t(out["mlen"]), _t(out["nxt"])
     active = torch.empty((mlen.shape[0], N // tfm.RESOLVE_CHUNK),
                          dtype=torch.int32)
@@ -193,8 +195,11 @@ def test_resolve_steps_stay_below_the_cap(steps):
     assert int(active.max()) <= 131
     assert bool((active - taken <= 3).all())
     assert int(active.max()) > 0
+    rows = _t(out["cand"])[None]
     with pytest.raises(ValueError, match="CUDA kernel"):
-        tfm.resolve_stats(mlen, nxt)
+        tfm.select_resolve_stats(_t(blocks), rows, _t(lens), "v3")
+    with pytest.raises(ValueError, match="inside select_resolve"):
+        tfm.resolve(mlen.to("meta"), nxt.to("meta"))
 
 
 def test_compact(steps):

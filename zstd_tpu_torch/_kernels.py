@@ -50,8 +50,8 @@ _SIGNATURES = {
                                         _I, _I, _P],
                     "exec_seq_ctrl_len": [],
                     "exec_seq_stats_len": []},
-    "lazy_resolve.cu": {"lazy_resolve_launch": [_P, _P, _P, _P, _P, _I, _I,
-                                                _P]},
+    "lazy_resolve.cu": {"lazy_resolve_launch": [_P, _P, _P, _P, _P, _P, _P,
+                                                _I, _I, _I, _I, _P]},
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its

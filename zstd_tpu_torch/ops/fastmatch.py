@@ -3,10 +3,12 @@
 Counterpart of zstd_tpu/ops/fastmatch.py: bytes combine into f32 "tri"
 words (3 bytes, exact below 2^24), a prime-mod linear form in f32 buckets
 every position, one stable sort per row gives each position its previous
-same-bucket positions, 3-byte gather passes quantize each candidate's match
-length, a lockstep greedy commit over 512-byte chunks (`resolve`, the
-csrc/lazy_resolve.cu kernel on a card) picks the matches, and fixed-pass
-torch ops merge, extend and compact them into the seqstore.
+same-bucket positions, 3-byte compares quantize each candidate's match
+length, a lockstep greedy commit over 512-byte chunks picks the matches
+(`select_resolve`: on a card one launch of csrc/lazy_resolve.cu scores the
+candidates and walks the chunks; on the CPU the plain chain `lazy_mlen` or
+`capped_mlen`, `next_matchable`, `resolve_plain`), and fixed-pass torch ops
+merge, extend and compact them into the seqstore.
 
 - `extract_batch_lazy`, the engine of every level whose strategy is >= 3:
   `LAZY_DEPTH` rows of candidates on the mls hash and 2 on a 4-byte hash,
@@ -39,6 +41,7 @@ CAP_MLEN = 19
 MLEN_PASSES = (4, 7, 10)
 LAZY_PASSES = (4, 7, 10, 13, 16, 19)
 LAZY_DEPTH = 8
+LAZY_ROWS = LAZY_DEPTH + 2       # then 2 rows on the 4-byte hash
 RESOLVE_CHUNK = 512
 RESOLVE_STEPS = 160
 REP_PASSES = 6                   # j = 0, 3, ..., 15: the JAX loop stops at 18
@@ -95,23 +98,26 @@ def hash_f32(tri, tri3, b3, b6, hash_log: int, mls: int) -> torch.Tensor:
 
 
 def candidate_rows(h: torch.Tensor, valid_lens: torch.Tensor,
-                   width: int) -> list:
+                   width: int, out: torch.Tensor | None = None) -> list:
     """The `width` previous same-bucket positions of every position: a list
     of int32[B, n], the k-th (k = 1..width) the sorted order shifted by k
-    (-1 = none, and at or past valid_len)."""
+    (-1 = none, and at or past valid_len). With `out` (int32[width, B, n])
+    the k-th is written into out[k - 1] and the list holds those views."""
     B, n = h.shape
     pos = torch.arange(n, device=h.device)
-    valid = pos[None, :] < valid_lens[:, None]
-    hv = torch.where(valid, h, 1 << 30)
+    invalid = pos[None, :] >= valid_lens[:, None]
+    hv = torch.where(invalid, 1 << 30, h)
     h_sorted, order = torch.sort(hv, dim=1, stable=True)
     order32 = order.to(torch.int32)
     rows = []
     for k in range(1, width + 1):
         prev = torch.where(h_sorted[:, k:] == h_sorted[:, :-k],
                            order32[:, :-k], -1)
-        ck = torch.full((B, n), -1, dtype=torch.int32, device=h.device)
+        ck = torch.empty((B, n), dtype=torch.int32, device=h.device) \
+            if out is None else out[k - 1]
+        ck.fill_(-1)
         ck.scatter_(1, order[:, k:], prev)
-        rows.append(torch.where(valid, ck, -1))
+        rows.append(ck.masked_fill_(invalid, -1))
     return rows
 
 
@@ -197,51 +203,100 @@ def resolve_plain(mlen: torch.Tensor, nxt: torch.Tensor,
 
 
 def resolve(mlen: torch.Tensor, nxt: torch.Tensor):
-    """(yp, yl) of `resolve_plain`. CPU tensors take the plain version; CUDA
-    tensors launch csrc/lazy_resolve.cu or raise. nxt must be
-    `next_matchable(mlen)`: the kernel reads each chunk's walk from
-    [base, end] only, which holds because nxt[i] >= i."""
-    if mlen.device.type == "cpu":
-        return resolve_plain(mlen, nxt)
-    return _resolve_cuda(mlen, nxt, None)
+    """(yp, yl) of `resolve_plain`, for CPU tensors only: on a card the walk
+    runs inside `select_resolve`'s kernel, which also computes its mlen and
+    nxt."""
+    if mlen.device.type != "cpu":
+        raise ValueError(f"resolve: unsupported device {mlen.device}; on a "
+                         "card the walk runs inside select_resolve")
+    return resolve_plain(mlen, nxt)
 
 
-def resolve_stats(mlen: torch.Tensor, nxt: torch.Tensor):
-    """`resolve` on CUDA tensors, plus the kernel's int32[B, L] count of the
-    steps each chunk ran with ip < end."""
-    if mlen.device.type == "cpu":
-        raise ValueError("resolve_stats: the counts come from the CUDA kernel; "
-                         "CPU tensors take resolve_plain(..., steps=)")
-    steps = torch.empty((mlen.shape[0], mlen.shape[1] // RESOLVE_CHUNK),
-                        dtype=torch.int32, device=mlen.device)
-    return _resolve_cuda(mlen, nxt, steps), steps
+# ---- scoring and resolve in one: the kernel and its plain chain ----------
+
+MODES = ("lazy", "v3")
 
 
-def _resolve_cuda(mlen, nxt, steps):
-    B, n = mlen.shape
-    dev = mlen.device
+def select_resolve_plain(blocks, rows, valid_lens, mode: str,
+                         steps: torch.Tensor | None = None):
+    """The committed slots of one engine from the block bytes and its
+    candidate rows: (yp, yl, cand), yp and yl as `resolve_plain` gives them,
+    cand the candidate each position's match takes. mode "lazy": rows are
+    the LAZY_ROWS rows (`lazy_mlen`: best gain, deferral; cand its best
+    candidate); "v3": one row (`capped_mlen`; cand that row). If `steps`
+    (int32[B, L]) is given, it receives the walk's active steps a chunk."""
+    tri, b3, _, _ = tri_arrays(blocks)
+    if mode == "lazy":
+        mlen, cand = lazy_mlen(tri, b3, rows, valid_lens)
+    elif mode == "v3":
+        cand = rows[0]
+        mlen = capped_mlen(tri, b3, cand, valid_lens)
+    else:
+        raise ValueError(f"select_resolve: unknown mode {mode!r}")
+    yp, yl = resolve_plain(mlen, next_matchable(mlen), steps)
+    return yp, yl, cand
+
+
+def select_resolve(blocks, rows, valid_lens, mode: str):
+    """(yp, yl, cand) of `select_resolve_plain`. blocks u8[B, n], rows
+    int32[R, B, n] (R = LAZY_ROWS in mode "lazy", 1 in "v3"), valid_lens
+    int32[B] (<= n). CPU tensors take the plain chain; CUDA tensors launch
+    csrc/lazy_resolve.cu or raise."""
+    if blocks.device.type == "cpu":
+        return select_resolve_plain(blocks, rows, valid_lens, mode)
+    return _select_resolve_cuda(blocks, rows, valid_lens, mode, None)
+
+
+def select_resolve_stats(blocks, rows, valid_lens, mode: str):
+    """`select_resolve` on CUDA tensors, plus the kernel's int32[B, L] count
+    of the steps each chunk ran with ip < end."""
+    if blocks.device.type == "cpu":
+        raise ValueError("select_resolve_stats: the counts come from the CUDA "
+                         "kernel; CPU tensors take select_resolve_plain(..., "
+                         "steps=)")
+    steps = torch.empty((blocks.shape[0], blocks.shape[1] // RESOLVE_CHUNK),
+                        dtype=torch.int32, device=blocks.device)
+    return _select_resolve_cuda(blocks, rows, valid_lens, mode, steps), steps
+
+
+def _select_resolve_cuda(blocks, rows, valid_lens, mode, steps):
+    B, n = blocks.shape
+    dev = blocks.device
     if dev.type != "cuda":
-        raise ValueError(f"resolve: unsupported device {dev}")
-    for name, t in (("mlen", mlen), ("nxt", nxt)):
-        if t.dtype != torch.int32 or tuple(t.shape) != (B, n) \
-                or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"resolve: {name} must be a contiguous int32 "
-                             f"tensor of shape {(B, n)} on {dev}")
+        raise ValueError(f"select_resolve: unsupported device {dev}")
+    if mode not in MODES:
+        raise ValueError(f"select_resolve: unknown mode {mode!r}")
+    R = LAZY_ROWS if mode == "lazy" else 1
+    for name, t, dtype, shape in (("blocks", blocks, torch.uint8, (B, n)),
+                                  ("rows", rows, torch.int32, (R, B, n)),
+                                  ("valid_lens", valid_lens, torch.int32,
+                                   (B,))):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype \
+                or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"select_resolve: {name} must be a contiguous "
+                             f"{dtype} tensor of shape {shape} on {dev}")
+    if blocks.data_ptr() % 8:
+        raise ValueError("select_resolve: blocks must be 8-byte aligned")
     L = n // RESOLVE_CHUNK
     yp = torch.empty((B, L * RESOLVE_STEPS), dtype=torch.int32, device=dev)
     yl = torch.empty_like(yp)
-    if B * L == 0:
-        return yp, yl
+    cand = torch.empty((B, n), dtype=torch.int32, device=dev) \
+        if mode == "lazy" else rows[0]
+    if B * n == 0:
+        return yp, yl, cand
     lib = _kernels.get("lazy_resolve.cu")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lazy_resolve_launch(
-            mlen.data_ptr(), nxt.data_ptr(), yp.data_ptr(), yl.data_ptr(),
-            0 if steps is None else steps.data_ptr(), B, n,
-            ctypes.c_void_p(stream))
+            blocks.data_ptr(), rows.data_ptr(), valid_lens.data_ptr(),
+            yp.data_ptr(), yl.data_ptr(),
+            cand.data_ptr() if mode == "lazy" else 0,
+            0 if steps is None else steps.data_ptr(), B, n, R,
+            MODES.index(mode), ctypes.c_void_p(stream))
     _kernels.check(err, "lazy_resolve_launch")
     _kernels.LAUNCHES["lazy_resolve"] += 1
-    return yp, yl
+    return yp, yl, cand
 
 
 # ---- from commits to the seqstore -----------------------------------------
@@ -404,11 +459,11 @@ def finish_sequences(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
                 overflow=nb_seq >= seq_cap)
 
 
-def _seqstore(blocks, tri, mlen, cand, valid_lens, seq_cap):
-    """The shared back half of both engines: resolve, compact, repcode
-    rewrite, chain merge, extension and literals."""
+def _seqstore(blocks, tri, rows, valid_lens, seq_cap, mode):
+    """The shared back half of both engines: lengths, selection and resolve,
+    compact, repcode rewrite, chain merge, extension and literals."""
     n = blocks.shape[1]
-    yp, yl = resolve(mlen.contiguous(), next_matchable(mlen).contiguous())
+    yp, yl, cand = select_resolve(blocks, rows, valid_lens, mode)
     c_pos, c_len, c_dist, c_nb = compact(yp, yl, cand, seq_cap, n)
     c_dist = rep_rewrite(tri, c_pos, c_len, c_dist, c_nb, n)
     seq = merge_chains(c_pos, c_len, c_dist, c_nb, seq_cap, n)
@@ -449,24 +504,37 @@ def lazy_mlen(tri, b3, rows, valid_lens):
     return torch.where(defer, 0, mlen), best_cand
 
 
+def engine_rows(blocks: torch.Tensor, valid_lens: torch.Tensor,
+                hash_log: int, mls: int, mode: str):
+    """(tri, rows): the tri words and the candidate rows int32[R, B, n] of
+    an engine, "lazy": LAZY_DEPTH rows on the mls hash, then 2 on the
+    4-byte hash; "v3": one row on the mls hash."""
+    tri, b3, tri3, b6 = tri_arrays(blocks)
+    h = hash_f32(tri, tri3, b3, b6, hash_log, mls)
+    if mode == "lazy":
+        h4 = h if mls == 4 else hash_f32(tri, tri3, b3, b6, hash_log, 4)
+        parts = ((h, LAZY_DEPTH), (h4, 2))
+    else:
+        parts = ((h, 1),)
+    rows = torch.empty((sum(w for _, w in parts), *blocks.shape),
+                       dtype=torch.int32, device=blocks.device)
+    k = 0
+    for hk, width in parts:
+        candidate_rows(hk, valid_lens, width, out=rows[k:k + width])
+        k += width
+    return tri, rows
+
+
 def extract_batch_lazy(blocks: torch.Tensor, valid_lens: torch.Tensor,
                        hash_log: int, mls: int, seq_cap: int) -> dict:
     """blocks u8[B, n], valid_lens i32[B]: the seqstore of the lazy engine
     (the JAX `extract_batch_lazy` at depth LAZY_DEPTH)."""
-    tri, b3, tri3, b6 = tri_arrays(blocks)
-    h = hash_f32(tri, tri3, b3, b6, hash_log, mls)
-    h4 = h if mls == 4 else hash_f32(tri, tri3, b3, b6, hash_log, 4)
-    rows = candidate_rows(h, valid_lens, LAZY_DEPTH) \
-        + candidate_rows(h4, valid_lens, 2)
-    mlen, cand = lazy_mlen(tri, b3, rows, valid_lens)
-    return _seqstore(blocks, tri, mlen, cand, valid_lens, seq_cap)
+    tri, rows = engine_rows(blocks, valid_lens, hash_log, mls, "lazy")
+    return _seqstore(blocks, tri, rows, valid_lens, seq_cap, "lazy")
 
 
 def extract_batch_v3(blocks: torch.Tensor, valid_lens: torch.Tensor,
                      hash_log: int, mls: int, seq_cap: int) -> dict:
     """The seqstore of the v3 engine (the JAX `extract_batch_v3`)."""
-    tri, b3, tri3, b6 = tri_arrays(blocks)
-    h = hash_f32(tri, tri3, b3, b6, hash_log, mls)
-    (cand,) = candidate_rows(h, valid_lens, 1)
-    mlen = capped_mlen(tri, b3, cand, valid_lens)
-    return _seqstore(blocks, tri, mlen, cand, valid_lens, seq_cap)
+    tri, rows = engine_rows(blocks, valid_lens, hash_log, mls, "v3")
+    return _seqstore(blocks, tri, rows, valid_lens, seq_cap, "v3")
