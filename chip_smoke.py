@@ -19,8 +19,12 @@ tests/data/torch_decode), and drives the lazy engine (phase 7: the fused
 scoring-and-resolve kernel against its plain chain in the lazy and v3
 modes, the 16 MiB level-5 encode with its profile and stage times, the
 1 MiB prefix's frames at levels 5 and 9 and under the v3 engine against
-the CPU path, and the level-5 frame decoded on the card), and prints one
-JSON line of kernel timings before its last line:
+the CPU path, and the level-5 frame decoded on the card), drives the xla
+engine and the sharded encode (phase 8: the xla_walk kernel against its
+plain chain, the 16 MiB level-1 encode under engine="xla", and
+parallel.zstdmt.compress_sharded in an NCCL group of one rank against a
+gloo group on the CPU, its 16 MiB frame decoded on the card), and prints
+one JSON line of kernel timings before its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -200,11 +204,16 @@ def profile_run(fn, retries: int = 6) -> dict:
     return dict(wall_ms=wall * 1e3, busy_ms=busy / 1e3, by_name=by_name)
 
 
-def profiled_encode(pipeline, dev, corpus: bytes, level: int) -> None:
-    """One profiled encode of the corpus at `level`: the host halves timed by
-    wrapping them on one compressor, the device's busy time, idle share and
-    the top kernels by device time."""
+def profiled_encode(pipeline, dev, corpus: bytes, level: int,
+                    encode=None, label: str | None = None) -> None:
+    """One profiled encode of the corpus at `level` (or one call of
+    `encode()`): the host halves timed by wrapping them on the compressor
+    class, the device's busy time, idle share and the top kernels by device
+    time."""
     host_s = {}
+    cls = pipeline.TorchCompressor
+    saved = {name: getattr(cls, name) for name in ("_build_plans",
+                                                   "_finalize")}
 
     def timed(name, fn):
         def run(*args):
@@ -214,24 +223,33 @@ def profiled_encode(pipeline, dev, corpus: bytes, level: int) -> None:
             return out
         return run
 
-    comp = pipeline.TorchCompressor(level=level, device=dev)
-    for name in ("_build_plans", "_finalize"):
-        setattr(comp, name, timed(name, getattr(comp, name)))
+    if encode is None:
+        comp = pipeline.TorchCompressor(level=level, device=dev)
+        encode = lambda: comp.compress(corpus)       # noqa: E731
+    label = label or f"level {level}"
+
     def run():
         host_s.clear()               # a rerun session counts once
-        comp.compress(corpus)
+        encode()
 
-    prof = profile_run(run)
-    print(f"level {level} host: " + ", ".join(
+    for name, fn in saved.items():
+        setattr(cls, name, timed(name, fn))
+    try:
+        prof = profile_run(run)
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+    print(f"{label} host: " + ", ".join(
         f"{k} {v * 1e3:.1f} ms" for k, v in host_s.items()), flush=True)
     if prof["busy_ms"] <= 0:
-        print(f"level {level} profile: the profiler recorded no device "
+        print(f"{label} profile: the profiler recorded no device "
               "activity; device busy time not measured", flush=True)
         return
-    print(f"level {level} profile: wall {prof['wall_ms']:.1f} ms, device "
+    print(f"{label} profile: wall {prof['wall_ms']:.1f} ms, device "
           f"busy {prof['busy_ms']:.1f} ms, idle share "
           f"{1 - prof['busy_ms'] / prof['wall_ms']:.5f}", flush=True)
-    for kern in ("extract_kernel", "fse_chain_kernel", "lazy_resolve_kernel"):
+    for kern in ("extract_kernel", "fse_chain_kernel", "lazy_resolve_kernel",
+                 "xla_walk_kernel"):
         ms = sum(v for k, v in prof["by_name"].items() if kern in k)
         print(f"  {kern}: {ms:.3f} ms of device time", flush=True)
     top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:12]
@@ -778,6 +796,185 @@ def lazy_phase(dev, corpus: bytes) -> dict:
                 library_ms=None)
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def xla_phase(dev, corpus: bytes) -> dict:
+    """Phase 8: the xla engine and the one-frame sharded encode. The xla_walk
+    kernel (capped lengths and the greedy walk in one launch) against its
+    plain chain (match_lengths, the mask, greedy_resolve) on level-1 batch 0,
+    on the sharded rows of the corpus's first 32 blocks (64 KiB halo + 128
+    KiB block, row 0's halo fabricated) and on zero, period-8, random and
+    short-valid_len rows; its time, bound and the plain chain's; the 16 MiB
+    level-1 encode under engine="xla" (launches, rate) and its 1 MiB prefix
+    cuda == cpu; parallel.zstdmt.compress_sharded in an NCCL group of one
+    rank (its 1 MiB prefix against a gloo group on the CPU, the 16 MiB
+    frame decoded on the card). Returns the kernel's entry of the kernels
+    line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from zstd_tpu_torch import _kernels, device_decoder, pipeline
+    from zstd_tpu_torch.ops import match as tm
+    from zstd_tpu_torch.parallel import shard_compress, zstdmt
+    from zstd_tpu_torch.params import get_cparams
+
+    cp = get_cparams(1, len(corpus))
+    mls = min(max(cp.min_match, 4), 8)
+    arr = np.frombuffer(corpus, np.uint8)
+    halo = zstdmt.overlap_size(cp.strategy, cp.window_log)
+    rng = np.random.default_rng(0)
+
+    def case(rows, vls, efs, hoks):
+        blocks = torch.from_numpy(np.stack(rows)).to(dev)
+        vl = torch.tensor(vls, dtype=torch.int32, device=dev)
+        ef = torch.tensor(efs, dtype=torch.int32, device=dev)
+        hok = torch.tensor(hoks, device=dev)
+        cands = tm.banned_candidates(blocks, vl, cp.hash_log, mls, ef,
+                                     hok).contiguous()
+        return blocks, cands, vl, ef
+
+    b0 = [arr[i * N_BLOCK:(i + 1) * N_BLOCK] for i in range(32)]
+    # the sharded rows as compress_sharded builds them on one rank: block
+    # j behind the last `halo` bytes of block j - 1; row 0 behind the last
+    # row's tail, a fabricated halo (banned)
+    sh = [np.concatenate([b0[j - 1][-halo:], b0[j]]) for j in range(32)]
+    short = [arr[40 * N_BLOCK:41 * N_BLOCK], arr[41 * N_BLOCK:42 * N_BLOCK]]
+    cases = {
+        "batch 0": case(b0, [N_BLOCK] * 32, [0] * 32, [True] * 32),
+        f"sharded rows (n = {halo + N_BLOCK})": case(
+            sh, [halo + N_BLOCK] * 32, [halo] * 32, [False] + [True] * 31),
+        "zero row": case([np.zeros(N_BLOCK, np.uint8)], [N_BLOCK], [0],
+                         [True]),
+        "period-8 row": case([np.tile(rng.integers(0, 256, 8, dtype=np.uint8),
+                                      N_BLOCK // 8)], [N_BLOCK], [0], [True]),
+        "random row": case([rng.integers(0, 256, N_BLOCK, dtype=np.uint8)],
+                           [N_BLOCK], [0], [True]),
+        "valid_len 100,003 and 77,777 rows": case(short, [100_003, 77_777],
+                                                  [0, 0], [True, True]),
+    }
+    err = 0
+    for name, args in cases.items():
+        got, st = tm.xla_walk_stats(*args)
+        torch.cuda.synchronize()
+        want = tm.xla_walk_plain(*args)
+        e = max_abs_err(got, want)
+        s = st.long()
+        slow = int(s[:, 4:].sum(dim=1).argmax())
+        print(f"xla_walk {name}: max_abs_err {e} (committed, take_len); "
+              f"commits a row {int(s[:, 0].min())}-{int(s[:, 0].max())}, "
+              f"longest {int(got[1].max())}; slowest row: {s[slow].tolist()} "
+              f"(commits, long commits, their 128-byte rounds, walk steps, "
+              f"tile-pass cycles, walk cycles)", flush=True)
+        assert e == 0, f"xla_walk kernel disagrees with its plain ({name})"
+        err = max(err, e)
+    timing = {}
+    for name in ("batch 0", f"sharded rows (n = {halo + N_BLOCK})"):
+        args = cases[name]
+        out = tm.xla_walk(*args)
+        ms = cuda_ms(lambda: tm.xla_walk(*args))
+        plain = host_ms(lambda: tm.xla_walk_plain(*args))
+        # each input read once, each output written once
+        nb = nbytes(*args, *out)
+        timing[name] = (ms, plain, nb / HBM_BYTES_PER_S * 1e3)
+        print(f"xla_walk {name}: kernel {ms:.4f} ms, plain chain {plain:.1f} "
+              f"ms host wall, bound {nb / HBM_BYTES_PER_S * 1e6:.2f} us "
+              f"({nb} B: blocks, cands, valid_lens, emit_from read, "
+              f"committed, take_len written)", flush=True)
+
+    # ---- the pipeline under engine="xla": 16 MiB, level 1 ----------------
+    prefix = corpus[:PREFIX_BYTES]
+    f_gpu = pipeline.compress(prefix, level=1, checksum=True, device=dev,
+                              engine="xla")
+    f_cpu = pipeline.compress(prefix, level=1, checksum=True, device="cpu",
+                              engine="xla")
+    assert f_gpu == f_cpu, "xla engine: cuda and cpu frames of 1 MiB differ"
+    print(f"1 MiB prefix, engine xla: cuda frame == cpu frame "
+          f"({len(f_gpu)} B)", flush=True)
+    pipeline.compress(corpus, level=1, device=dev, engine="xla")   # warm
+    for k in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[k] = 0
+    times = []
+    t0 = time.perf_counter()
+    frame = pipeline.compress(corpus, level=1, device=dev, engine="xla")
+    times.append(time.perf_counter() - t0)
+    launches = dict(_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    frame2 = pipeline.compress(corpus, level=1, device=dev, engine="xla")
+    times.append(time.perf_counter() - t0)
+    assert frame2 == frame, "two xla-engine runs gave different frames"
+    print(f"engine xla, level 1: {len(corpus)} B -> {len(frame)} B, ratio "
+          f"{len(corpus) / len(frame):.4f}, "
+          f"{len(corpus) / min(times) / 1e6:.2f} MB/s (best of 2: "
+          f"{times[0]:.3f} s, {times[1]:.3f} s), launches {launches}",
+          flush=True)
+    for k in ("xla_walk", "fse_chain"):
+        assert launches[k] > 0, f"kernel {k} was not launched under xla"
+    assert launches["extract"] == 0, "the extract kernel ran under xla"
+    assert frame_blocks(frame) == len(corpus) // N_BLOCK
+    stage_mbps = pipeline.TorchCompressor(
+        level=1, device=dev, engine="xla").device_stage_mbps(corpus)
+    print(f"engine xla device_stage_mbps: {stage_mbps:.2f}", flush=True)
+    profiled_encode(pipeline, dev, corpus, 1, label="engine xla, level 1",
+                    encode=lambda: pipeline.compress(corpus, level=1,
+                                                     device=dev,
+                                                     engine="xla"))
+
+    # ---- compress_sharded in an NCCL group of one rank ---------------------
+    grp = shard_compress.init_group(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        cpu_grp = shard_compress.make_group(
+            device="cpu", pg=dist.new_group(backend="gloo"))
+        s_gpu = zstdmt.compress_sharded(prefix, level=1, checksum=True,
+                                        group=grp)
+        s_cpu = zstdmt.compress_sharded(prefix, level=1, checksum=True,
+                                        group=cpu_grp)
+        assert s_gpu == s_cpu, "compress_sharded: cuda and cpu frames differ"
+        print(f"1 MiB prefix, compress_sharded: nccl frame == gloo/cpu frame "
+              f"({len(s_gpu)} B)", flush=True)
+        zstdmt.compress_sharded(corpus, level=1, group=grp)         # warm
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        s_times = []
+        t0 = time.perf_counter()
+        s_frame = zstdmt.compress_sharded(corpus, level=1, group=grp)
+        s_times.append(time.perf_counter() - t0)
+        s_launches = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        s_frame2 = zstdmt.compress_sharded(corpus, level=1, group=grp)
+        s_times.append(time.perf_counter() - t0)
+        profiled_encode(pipeline, dev, corpus, 1, label="compress_sharded",
+                        encode=lambda: zstdmt.compress_sharded(
+                            corpus, level=1, group=grp))
+    finally:
+        dist.destroy_process_group()
+    assert s_frame2 == s_frame, "two compress_sharded runs differ"
+    for k in ("xla_walk", "fse_chain"):
+        assert s_launches[k] > 0, f"kernel {k} was not launched sharded"
+    print(f"compress_sharded, level 1, one rank (halo {halo}): {len(corpus)} B "
+          f"-> {len(s_frame)} B, ratio {len(corpus) / len(s_frame):.4f}, "
+          f"{len(corpus) / min(s_times) / 1e6:.2f} MB/s (best of 2: "
+          f"{s_times[0]:.3f} s, {s_times[1]:.3f} s), launches {s_launches}",
+          flush=True)
+    t0 = time.perf_counter()
+    out = device_decoder.device_decompress(s_frame, device=dev)
+    assert out == corpus, "the sharded frame does not decode to the corpus"
+    print(f"  decoded on the card by device_decompress: == corpus "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    ms, plain, bound = timing["batch 0"]
+    return dict(name="xla_walk", route="cuda",
+                source="zstd_tpu_torch/csrc/xla_walk.cu",
+                replaces="zstd_tpu/ops/match.py:100 and :174",
+                launches=launches["xla_walk"], max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=None)
+
+
 def main() -> int:
     signal.alarm(1150)             # hard deadline: the default action exits
     import numpy as np
@@ -998,6 +1195,9 @@ def main() -> int:
 
     # ---- 7. the lazy engine: level 5 ---------------------------------------
     kernels.append(lazy_phase(dev, corpus))
+
+    # ---- 8. the xla engine and the one-frame sharded encode ----------------
+    kernels.append(xla_phase(dev, corpus))
     print(card_line(), flush=True)       # again, beside the numbers below
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,8 @@ def test_import_leaves_out_jax_and_zstd_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "zstd_tpu_torch.pipeline" in modules
+    for m in ("pipeline", "parallel.shard_compress", "parallel.zstdmt"):
+        assert f"zstd_tpu_torch.{m}" in modules
 
 
 def test_sources_name_neither_jax_nor_zstd_tpu():

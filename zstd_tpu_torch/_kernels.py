@@ -20,7 +20,7 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu",
-           "lazy_resolve.cu")
+           "lazy_resolve.cu", "xla_walk.cu")
 
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,12 +52,14 @@ _SIGNATURES = {
                     "exec_seq_stats_len": []},
     "lazy_resolve.cu": {"lazy_resolve_launch": [_P, _P, _P, _P, _P, _P, _P,
                                                 _I, _I, _I, _I, _P]},
+    "xla_walk.cu": {"xla_walk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _P]},
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its
 # kernel (and nowhere else), so a run can show which kernels it went through
 LAUNCHES = {"extract": 0, "fse_chain": 0, "huf_decode": 0, "exec_seq": 0,
-            "lazy_resolve": 0}
+            "lazy_resolve": 0, "xla_walk": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -14,11 +14,13 @@ Structure (as in zstd_tpu, built around the host link):
   d2h:   one prefix of the compact buffer per batch.
   host:  frame assembly (`_finalize`).
 
-Match extraction has three engines, chosen as zstd_tpu chooses them: `lazy`
-(ops/fastmatch.extract_batch_lazy, the chunked-resolve kernel) at every level
-whose strategy is >= 3, else `pallas` (torch-op propose + the extract
-kernel). The `engine` argument ("pallas" or "v3") overrides both, as
-ZSTD_TPU_ENGINE does there; "xla" is not ported (ROADMAP item 10).
+Match extraction has four engines. Two are chosen as zstd_tpu chooses them:
+`lazy` (ops/fastmatch.extract_batch_lazy, the chunked-resolve kernel) at
+every level whose strategy is >= 3, else `pallas` (torch-op propose + the
+extract kernel). The `engine` argument ("pallas", "v3" or "xla") overrides
+both at every level, as ZSTD_TPU_ENGINE does there; `xla`
+(ops/seqextract.extract_batch_xla, the xla_walk kernel) is also the engine
+of parallel.zstdmt.compress_sharded.
 
 Batches run in a window of three: stage A of batch k is enqueued before the
 host plans batch k-2 and assembles batch k-3, and the stats and compact
@@ -54,7 +56,7 @@ from .ops.codes import histogram, seq_codes
 from .ops.fastmatch import extract_batch_lazy, extract_batch_v3
 from .ops.fse_enc import STATE_TABLE_PAD, SYM_PAD, fse_pack
 from .ops.huffman_enc import huf_pack_4x
-from .ops.seqextract import extract_batch
+from .ops.seqextract import extract_batch, extract_batch_xla
 from .params import CParams, Strategy, get_cparams
 from .xxhash64 import content_checksum
 
@@ -89,26 +91,36 @@ def _analyze(blocks: torch.Tensor, valid_lens: torch.Tensor, hash_log: int,
              mls: int, seq_cap: int, engine: str = "pallas"):
     """Device stage A. blocks u8[B, N], valid_lens i32[B].
     Returns (stats i32[B, STATS_LEN], resident dict). The `pallas` engine
-    zeroes `lits` past nb_lit; `lazy` and `v3` gather them through lit_idx,
-    which holds N - 1 there, as zstd_tpu does."""
+    zeroes `lits` past nb_lit; `lazy`, `v3` and `xla` gather them through
+    lit_idx, which holds N - 1 there, as zstd_tpu does."""
     if engine == "pallas":
         res = extract_batch(blocks, valid_lens, hash_log, mls, seq_cap)
         lits = res["lits"]
     else:
-        fn = extract_batch_lazy if engine == "lazy" else extract_batch_v3
+        fn = {"lazy": extract_batch_lazy, "v3": extract_batch_v3,
+              "xla": extract_batch_xla}[engine]
         res = fn(blocks, valid_lens, hash_log, mls, seq_cap)
         lits = blocks.gather(1, res["lit_idx"].to(torch.int64))
-    nb_lit, nb_seq = res["nb_lit"], res["nb_seq"]
-    codes = seq_codes(res["ll"], res["off"], res["ml"], nb_seq)
     n = blocks.shape[1]
     j = torch.arange(n, device=blocks.device)[None, :]
+    all_same = ((blocks == blocks[:, :1]) |
+                (j >= valid_lens[:, None])).all(dim=1)
+    return stage_a_stats(res, lits, all_same)
+
+
+def stage_a_stats(res: dict, lits: torch.Tensor, all_same: torch.Tensor):
+    """(stats i32[B, STATS_LEN], resident dict) of stage A from an engine's
+    seqstore `res`, the literal rows and each block's all_same flag: the
+    sequence codes and histograms, the exact per-stream literal histogram,
+    and the tail (last codes, nb_seq, nb_lit, all_same, first literal)."""
+    nb_lit, nb_seq = res["nb_lit"], res["nb_seq"]
+    codes = seq_codes(res["ll"], res["off"], res["ml"], nb_seq)
+    j = torch.arange(lits.shape[1], device=lits.device)[None, :]
     nbl = nb_lit.to(torch.int64)[:, None]
     # exact per-stream byte histogram: stream s holds literals
     # [s * seg, (s + 1) * seg) with seg = ceil(nb_lit / 4)
     stream = (j // ((nbl + 3) // 4).clamp(min=1)).clamp(0, 3)
     lit_hist4 = histogram(stream * 256 + lits.long(), j < nbl, 1024)
-    all_same = ((blocks == blocks[:, :1]) |
-                (j >= valid_lens[:, None])).all(dim=1)
     tail = torch.stack([nb_seq, nb_lit, all_same.to(torch.int32),
                         lits[:, 0].to(torch.int32)], dim=1)
     stats = torch.cat([lit_hist4, codes["ll_hist"], codes["ml_hist"],
@@ -168,8 +180,12 @@ def _pack(r: dict, plan_blob: torch.Tensor, cap: int, out_w_fse: int,
     fse_nb = (fse_bits + 7) // 8
     huf_nb = (huf_bits + 7) // 8
     # stream buffers are sized for typical densities; a block whose stream
-    # overflows its buffer is flagged and stored raw by the host
-    overflow = (fse_nb > out_w_fse * 4) | (huf_nb > out_w_huf * 4).any(dim=1)
+    # overflows its buffer is flagged and stored raw by the host. So is a
+    # block with more sequences than its seqstore holds (the xla engine does
+    # not stop at seq_cap; zstd_tpu packs such a block and writes a frame
+    # that no decoder takes)
+    overflow = (fse_nb > out_w_fse * 4) | (huf_nb > out_w_huf * 4).any(dim=1) \
+        | (nb_seq > r["llc"].shape[1])
     Wf, Wh = 4 * out_w_fse, 4 * out_w_huf
     fse_bytes = bytes_of_words(fse_words, fse_nb)
     huf_bytes = bytes_of_words(huf_words.reshape(B * 4, out_w_huf),
@@ -288,7 +304,7 @@ def _resolve_device(device) -> torch.device:
 @dataclasses.dataclass
 class TorchCompressor:
     """Batched, device-resident block compressor. `engine` None picks the
-    match engine by level; "pallas" or "v3" forces one."""
+    match engine by level; "pallas", "v3" or "xla" forces one."""
     level: int = 1
     checksum: bool = False
     batch_blocks: int = 32
@@ -297,12 +313,9 @@ class TorchCompressor:
 
     def __post_init__(self):
         self.device = _resolve_device(self.device)
-        if self.engine == "xla":
-            raise NotImplementedError("the xla engine is not ported "
-                                      "(ROADMAP item 10)")
-        if self.engine not in (None, "pallas", "v3"):
+        if self.engine not in (None, "pallas", "v3", "xla"):
             raise ValueError(f"unknown engine {self.engine!r}: pass None, "
-                             "'pallas' or 'v3'")
+                             "'pallas', 'v3' or 'xla'")
 
     def _engine_for(self, cparams: CParams) -> str:
         """zstd_tpu's choice: lazy when strategy >= 3, else pallas; an
@@ -778,7 +791,8 @@ def compress(data: bytes, level: int = 1, checksum: bool = False,
              batch_blocks: int = 32, device=None, engine=None) -> bytes:
     """One zstd frame of `data`, encoded through the device pipeline on
     `device` (default: the CUDA card; raises if there is none). `engine`
-    None picks the match engine by level; "pallas" or "v3" forces one."""
+    None picks the match engine by level; "pallas", "v3" or "xla" forces
+    one."""
     return TorchCompressor(level=level, checksum=checksum,
                            batch_blocks=batch_blocks, device=device,
                            engine=engine).compress(data)
