@@ -20,8 +20,10 @@ scoring-and-resolve kernel against its plain chain in the lazy and v3
 modes, the 16 MiB level-5 encode with its profile and stage times, the
 1 MiB prefix's frames at levels 5 and 9 and under the v3 engine against
 the CPU path, and the level-5 frame decoded on the card), drives the xla
-engine and the sharded encode (phase 8: the xla_walk kernel against its
-plain chain, the 16 MiB level-1 encode under engine="xla", and
+engine and the sharded encode (phase 8: the xla_walk kernel, from the
+candidates to the seqstore and the literal index in one launch, against
+its plain chain and its counts against tests/xlaextractmodel.py, the 16 MiB
+level-1 encode under engine="xla", and
 parallel.zstdmt.compress_sharded in an NCCL group of one rank against a
 gloo group on the CPU, its 16 MiB frame decoded on the card), and prints
 one JSON line of kernel timings before its last line:
@@ -805,11 +807,21 @@ def free_port() -> int:
 
 def xla_phase(dev, corpus: bytes) -> dict:
     """Phase 8: the xla engine and the one-frame sharded encode. The xla_walk
-    kernel (capped lengths and the greedy walk in one launch) against its
-    plain chain (match_lengths, the mask, greedy_resolve) on level-1 batch 0,
-    on the sharded rows of the corpus's first 32 blocks (64 KiB halo + 128
-    KiB block, row 0's halo fabricated) and on zero, period-8, random and
-    short-valid_len rows; its time, bound and the plain chain's; the 16 MiB
+    kernel (`seqextract.xla_extract`: the greedy walk of capped matches,
+    their backward extension, the seqstore and the literal index in one
+    launch) against its plain chain `xla_extract_plain` on level-1 batch 0
+    (also at seq_cap 64, where every row overflows), on the sharded rows of
+    the corpus's first 32 blocks and of all its blocks, as compress_sharded
+    launches them on one rank (64 KiB halo + 128 KiB block, row 0's halo
+    fabricated), on zero, period-8, random and short-valid_len rows, on
+    rows whose emit_from is valid_len - 12 and on rows of 393,216 B (a
+    256 KiB halo: read from device memory) (all seven keys, max_abs_err
+    0, at the CTAs a row the wrapper chooses and at each of 2, 3 and 4);
+    its counts per row against tests/xlaextractmodel.py on six rows; its
+    time at each CTA count, bound, the plain chain's host wall and the
+    device time of the torch ops of the emit it took over (a CUDA graph's
+    replay) on batch 0, both sets of sharded rows and the 393,216-B rows
+    (8 rows: one wave at every CTA count); the 16 MiB
     level-1 encode under engine="xla" (launches, rate) and its 1 MiB prefix
     cuda == cpu; parallel.zstdmt.compress_sharded in an NCCL group of one
     rank (its 1 MiB prefix against a gloo group on the CPU, the 16 MiB
@@ -818,8 +830,10 @@ def xla_phase(dev, corpus: bytes) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
+    from xlaextractmodel import extract_row
     from zstd_tpu_torch import _kernels, device_decoder, pipeline
     from zstd_tpu_torch.ops import match as tm
+    from zstd_tpu_torch.ops import seqextract as ts
     from zstd_tpu_torch.parallel import shard_compress, zstdmt
     from zstd_tpu_torch.params import get_cparams
 
@@ -828,63 +842,129 @@ def xla_phase(dev, corpus: bytes) -> dict:
     arr = np.frombuffer(corpus, np.uint8)
     halo = zstdmt.overlap_size(cp.strategy, cp.window_log)
     rng = np.random.default_rng(0)
+    keys = ("nb_seq", "ll", "off", "ml", "lit_idx", "nb_lit", "overflow")
 
-    def case(rows, vls, efs, hoks):
+    def case(rows, vls, efs, hoks, cap):
         blocks = torch.from_numpy(np.stack(rows)).to(dev)
         vl = torch.tensor(vls, dtype=torch.int32, device=dev)
         ef = torch.tensor(efs, dtype=torch.int32, device=dev)
         hok = torch.tensor(hoks, device=dev)
         cands = tm.banned_candidates(blocks, vl, cp.hash_log, mls, ef,
                                      hok).contiguous()
-        return blocks, cands, vl, ef
+        return blocks, cands, vl, ef, hok, cap
 
+    cap1 = N_BLOCK // 8
+    n_sh = halo + N_BLOCK
     b0 = [arr[i * N_BLOCK:(i + 1) * N_BLOCK] for i in range(32)]
     # the sharded rows as compress_sharded builds them on one rank: block
     # j behind the last `halo` bytes of block j - 1; row 0 behind the last
     # row's tail, a fabricated halo (banned)
+    n_all = len(corpus) // N_BLOCK
+    blk = [arr[i * N_BLOCK:(i + 1) * N_BLOCK] for i in range(n_all)]
+    sh_all = [np.concatenate([blk[j - 1][-halo:], blk[j]])
+              for j in range(n_all)]
     sh = [np.concatenate([b0[j - 1][-halo:], b0[j]]) for j in range(32)]
     short = [arr[40 * N_BLOCK:41 * N_BLOCK], arr[41 * N_BLOCK:42 * N_BLOCK]]
     cases = {
-        "batch 0": case(b0, [N_BLOCK] * 32, [0] * 32, [True] * 32),
-        f"sharded rows (n = {halo + N_BLOCK})": case(
-            sh, [halo + N_BLOCK] * 32, [halo] * 32, [False] + [True] * 31),
+        "batch 0": case(b0, [N_BLOCK] * 32, [0] * 32, [True] * 32, cap1),
+        f"sharded rows (n = {n_sh})": case(
+            sh, [n_sh] * 32, [halo] * 32, [False] + [True] * 31,
+            N_BLOCK // 4),
+        f"compress_sharded's {n_all} rows": case(
+            sh_all, [n_sh] * n_all, [halo] * n_all,
+            [False] + [True] * (n_all - 1), N_BLOCK // 4),
+        "batch 0 at seq_cap 64": case(b0, [N_BLOCK] * 32, [0] * 32,
+                                      [True] * 32, 64),
         "zero row": case([np.zeros(N_BLOCK, np.uint8)], [N_BLOCK], [0],
-                         [True]),
+                         [True], cap1),
         "period-8 row": case([np.tile(rng.integers(0, 256, 8, dtype=np.uint8),
-                                      N_BLOCK // 8)], [N_BLOCK], [0], [True]),
+                                      N_BLOCK // 8)], [N_BLOCK], [0], [True],
+                             cap1),
         "random row": case([rng.integers(0, 256, N_BLOCK, dtype=np.uint8)],
-                           [N_BLOCK], [0], [True]),
-        "valid_len 100,003 and 77,777 rows": case(short, [100_003, 77_777],
-                                                  [0, 0], [True, True]),
+                           [N_BLOCK], [0], [True], cap1),
+        "valid_len 100,003 and 77,777 rows": case(
+            short, [100_003, 77_777], [0, 0], [True, True], cap1),
+        "emit_from = valid_len - 12 rows": case(
+            short, [100_003, 77_777], [100_003 - 12, 77_777 - 12],
+            [True, False], cap1),
+        # rows of a level-5 shard (a 256 KiB halo), too long for a CTA's
+        # shared memory: the kernel reads them from device memory
+        f"rows of n = {3 * N_BLOCK}": case(
+            [arr[j * N_BLOCK:(j + 3) * N_BLOCK] for j in range(8)],
+            [3 * N_BLOCK] * 8, [2 * N_BLOCK] * 8, [True] * 8, N_BLOCK // 4),
     }
+    # rows whose kernel counts are held to the model: (case, row)
+    model_rows = [("batch 0", 0), ("batch 0", 1), ("zero row", 0),
+                  ("valid_len 100,003 and 77,777 rows", 1),
+                  (f"sharded rows (n = {n_sh})", 0),
+                  (f"rows of n = {3 * N_BLOCK}", 0)]
     err = 0
     for name, args in cases.items():
-        got, st = tm.xla_walk_stats(*args)
+        got, st = ts.xla_extract_stats(*args)
         torch.cuda.synchronize()
-        want = tm.xla_walk_plain(*args)
-        e = max_abs_err(got, want)
+        want = ts.xla_extract_plain(*args)
+        e = max_abs_err(tuple(got[k] for k in keys),
+                        tuple(want[k] for k in keys))
+        # every instantiation the wrapper may choose, held to the plain too
+        e_by = []
+        for c in ts.CTAS:
+            got_c, _ = ts.xla_extract_stats(*args, ctas=c)
+            e_by.append(max_abs_err(tuple(got_c[k] for k in keys),
+                                    tuple(want[k] for k in keys)))
         s = st.long()
-        slow = int(s[:, 4:].sum(dim=1).argmax())
-        print(f"xla_walk {name}: max_abs_err {e} (committed, take_len); "
-              f"commits a row {int(s[:, 0].min())}-{int(s[:, 0].max())}, "
-              f"longest {int(got[1].max())}; slowest row: {s[slow].tolist()} "
-              f"(commits, long commits, their 128-byte rounds, walk steps, "
-              f"tile-pass cycles, walk cycles)", flush=True)
-        assert e == 0, f"xla_walk kernel disagrees with its plain ({name})"
-        err = max(err, e)
+        slow = int(s[:, 9].argmax())
+        print(f"xla_walk {name}: max_abs_err {e} (seven keys; with "
+              f"{int(s[0, 8])} CTAs a row, the wrapper's choice; "
+              f"with 2, 3, 4: "
+              f"{', '.join(map(str, e_by))}); nb_seq "
+              f"{int(s[:, 0].min())}-{int(s[:, 0].max())}, overflow "
+              f"{int(got['overflow'].sum())} rows; slowest row {slow}: "
+              + ", ".join(f"{k} {v}" for k, v in zip(ts.XLA_STATS,
+                                                     s[slow].tolist())),
+              flush=True)
+        assert e == 0 and max(e_by) == 0, \
+            f"xla_walk kernel disagrees with its plain ({name})"
+        err = max(err, e, *e_by)
+        for mname, r in model_rows:
+            if mname != name:
+                continue
+            _, counts = extract_row(
+                args[0][r].cpu().numpy(), args[1][r].cpu().numpy(),
+                int(args[2][r]), int(args[3][r]), bool(args[4][r]), args[5],
+                32 * int(s[r, 8]))
+            kc = dict(zip(ts.XLA_STATS, s[r].tolist()))
+            print(f"  row {r}: kernel counts == tests/xlaextractmodel.py's: "
+                  f"{counts}", flush=True)
+            assert all(kc[k] == v for k, v in counts.items()), \
+                f"xla_walk counts differ from the model ({name}, row {r}): {kc}"
+    lib = _kernels.get("xla_walk.cu")
+    print(f"xla_walk clusters the card holds at once, by CTAs a row 2, 3, 4: "
+          f"{[lib.xla_walk_max_clusters(N_BLOCK, c) for c in ts.CTAS]}",
+          flush=True)
     timing = {}
-    for name in ("batch 0", f"sharded rows (n = {halo + N_BLOCK})"):
+    for name in ("batch 0", f"sharded rows (n = {n_sh})",
+                 f"compress_sharded's {n_all} rows",
+                 f"rows of n = {3 * N_BLOCK}"):
         args = cases[name]
-        out = tm.xla_walk(*args)
-        ms = cuda_ms(lambda: tm.xla_walk(*args))
-        plain = host_ms(lambda: tm.xla_walk_plain(*args))
+        B, n = args[0].shape
+        out = ts.xla_extract(*args)
+        ms = cuda_ms(lambda: ts.xla_extract(*args))
+        plain = host_ms(lambda: ts.xla_extract_plain(*args))
+        com, take = tm.xla_walk_plain(*args[:4])
+        emit_ms = graph_ms(lambda: ts.xla_emit_plain(*args, com, take))
         # each input read once, each output written once
-        nb = nbytes(*args, *out)
+        nb = nbytes(*args[:5], *out.values())
         timing[name] = (ms, plain, nb / HBM_BYTES_PER_S * 1e3)
-        print(f"xla_walk {name}: kernel {ms:.4f} ms, plain chain {plain:.1f} "
-              f"ms host wall, bound {nb / HBM_BYTES_PER_S * 1e6:.2f} us "
-              f"({nb} B: blocks, cands, valid_lens, emit_from read, "
-              f"committed, take_len written)", flush=True)
+        by_ctas = [cuda_ms(lambda: ts.xla_extract_stats(*args, ctas=c))
+                   for c in ts.CTAS]
+        print(f"xla_walk {name}: kernel {ms:.4f} ms ({ts.xla_ctas(B, n, dev)} "
+              f"CTAs a row), plain chain {plain:.1f} ms host wall, bound "
+              f"{nb / HBM_BYTES_PER_S * 1e6:.2f} us ({nb} B: blocks, cands, "
+              f"valid_lens, emit_from, halo_ok read; the seven outputs "
+              f"written); the torch ops of the emit it took over: "
+              f"{emit_ms:.4f} ms device (CUDA graph); with 2, 3, 4 CTAs a row "
+              f"(and the stats): "
+              + ", ".join(f"{t:.4f}" for t in by_ctas) + " ms", flush=True)
 
     # ---- the pipeline under engine="xla": 16 MiB, level 1 ----------------
     prefix = corpus[:PREFIX_BYTES]
@@ -969,7 +1049,8 @@ def xla_phase(dev, corpus: bytes) -> dict:
     ms, plain, bound = timing["batch 0"]
     return dict(name="xla_walk", route="cuda",
                 source="zstd_tpu_torch/csrc/xla_walk.cu",
-                replaces="zstd_tpu/ops/match.py:100 and :174",
+                replaces="zstd_tpu/ops/match.py:100 and :174; "
+                         "zstd_tpu/ops/seqextract.py:45-97",
                 launches=launches["xla_walk"], max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bound, bound_by="bytes",
                 library_ms=None)

@@ -7,8 +7,9 @@ random over alphabets of 3 and 256, text; valid lengths n, n - 5 and
 n - 3000. The one difference is the port's repair of a fabricated halo (a
 row whose halo_ok is False): its backward extension never takes the
 candidate's side below emit_from, where zstd_tpu's does
-(`test_fabricated_halo_extension_is_capped`). tests/xlawalkmodel.py, a model
-of csrc/xla_walk.cu's tiles, is held to the kernel's plain chain.
+(`test_fabricated_halo_extension_is_capped`). tests/xlaextractmodel.py, a
+model of csrc/xla_walk.cu (segments, speculate, repair rounds, emit), is
+held to the kernel's plain chain, seqextract.xla_extract_plain.
 """
 
 import functools
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from tests.conftest import gen_text
-from tests.xlawalkmodel import TILE, walk
+from tests.xlaextractmodel import extract_row
 from zstd_tpu.ops import match as jm
 from zstd_tpu.ops import seqextract as js
 from zstd_tpu_torch.ops import match as tm
@@ -70,6 +71,7 @@ def jax_cands(blocks: np.ndarray, vlens) -> np.ndarray:
 
 
 HALOS = [(0, True), (3000, False), (3000, True), (N - 12, False)]
+KEYS = ("nb_seq", "ll", "off", "ml", "lit_idx", "nb_lit", "overflow")
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,18 +84,27 @@ def jax_find(kind: str) -> list:
         jnp.full(3, hok))) for ef, hok in HALOS]
 
 
+# the model's cases, one emit_from / halo_ok per row (valid lengths N,
+# N - 5, N - 3000): emit_from at 0, inside the row, at valid_len - 12 and
+# past it; a fabricated halo; seq_cap 64 overflows
+MODEL_CASES = [(np.array([0, 3000, N - 3012], np.int32),
+                np.array([True, False, True]), 2048),
+               (np.array([N - 12, 0, 100], np.int32),
+                np.array([False, True, False]), 64)]
+
+
 @functools.lru_cache(maxsize=None)
-def plain_walks(kind: str) -> list:
-    """For emit_from 0, 3000 and N - 12 (halo_ok True): (emit_from, cands,
-    committed, take_len) of xla_walk_plain on rows(kind), computed once."""
+def plain_extracts(kind: str) -> list:
+    """For each of MODEL_CASES: (cands, xla_extract_plain's outputs) on
+    rows(kind), as numpy arrays, computed once."""
     blocks = rows(kind)
     out = []
-    for ef in (0, 3000, N - 12):
-        efs = np.full(3, ef, np.int32)
+    for efs, hoks, cap in MODEL_CASES:
         cands = tm.banned_candidates(t(blocks), t(VLENS), HASH_LOG, MLS,
-                                     t(efs), torch.ones(3, dtype=torch.bool))
-        com, take = tm.xla_walk_plain(t(blocks), cands, t(VLENS), t(efs))
-        out.append((ef, cands.numpy(), com.numpy(), take.numpy()))
+                                     t(efs), t(hoks))
+        res = ts.xla_extract_plain(t(blocks), cands, t(VLENS), t(efs),
+                                   t(hoks), cap)
+        out.append((cands.numpy(), {k: v.numpy() for k, v in res.items()}))
     return out
 
 
@@ -141,33 +152,56 @@ def test_find_matches_block(kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_walk_plain_is_the_jax_chain(kind):
-    """xla_walk's plain chain: committed and take_len = where(committed,
+    """The walk's plain chain: committed and take_len = where(committed,
     mlen, 0) of zstd_tpu's find_matches_block."""
     blocks = rows(kind)
     for (ef, hok), (jc, jl, _) in zip(HALOS, jax_find(kind)):
         efs = np.full(3, ef, np.int32)
         cands = tm.banned_candidates(t(blocks), t(VLENS), HASH_LOG, MLS,
                                      t(efs), torch.full((3,), hok))
-        com, take = tm.xla_walk(t(blocks), cands, t(VLENS), t(efs))
+        com, take = tm.xla_walk_plain(t(blocks), cands, t(VLENS), t(efs))
         assert com.dtype == torch.uint8 and take.dtype == torch.int32
         np.testing.assert_array_equal(com.numpy(), jc)
         np.testing.assert_array_equal(take.numpy(), np.where(jc, jl, 0))
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("tile", [128, 1000, TILE])
-def test_kernel_model_matches_plain(kind, tile):
-    """The kernel's tiles (tests/xlawalkmodel.py) give the plain chain's
-    committed and take_len, for any tile size, at the emit_from and
-    valid_len edges."""
+@pytest.mark.parametrize("segs", [1, 7, 32, 128])
+def test_kernel_model_matches_plain(kind, segs):
+    """The kernel's segments, speculate, repair rounds and emit
+    (tests/xlaextractmodel.py) give xla_extract_plain's seven keys, for any
+    segment count (the kernel's is 128), at the emit_from and valid_len
+    edges, in a row whose halo is fabricated and past seq_cap."""
     blocks = rows(kind)
-    for ef, cands, com, take in plain_walks(kind):
+    for (efs, hoks, cap), (cands, want) in zip(MODEL_CASES,
+                                               plain_extracts(kind)):
         for b in range(3):
-            m_com, m_take, _, commits = walk(blocks[b], cands[b],
-                                             int(VLENS[b]), ef, tile)
-            np.testing.assert_array_equal(m_com, com[b])
-            np.testing.assert_array_equal(m_take, take[b])
-            assert commits == int(com[b].sum())
+            got, counts = extract_row(blocks[b], cands[b], int(VLENS[b]),
+                                      int(efs[b]), bool(hoks[b]), cap, segs)
+            for k in KEYS:
+                np.testing.assert_array_equal(np.asarray(got[k]), want[k][b],
+                                              err_msg=k)
+            assert counts["commits"] == int(want["nb_seq"][b])
+            assert counts["segments"] <= segs
+            if segs == 1:
+                assert counts["rounds"] == 0
+
+
+def test_xla_extract_dispatch():
+    """CPU tensors take the plain chain; the counts exist only on a card;
+    a tensor on any other device raises, it never falls back."""
+    blocks = rows("text")
+    efs, hoks, cap = MODEL_CASES[0]
+    cands, want = plain_extracts("text")[0]
+    args = (t(blocks), t(cands), t(VLENS), t(efs), t(hoks), cap)
+    got = ts.xla_extract(*args)
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+    with pytest.raises(ValueError):
+        ts.xla_extract_stats(*args)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ts.xla_extract(*(a.to("meta") if isinstance(a, torch.Tensor) else a
+                         for a in args))
 
 
 def _sources(res: dict, b: int, ef: int) -> np.ndarray:
@@ -176,9 +210,6 @@ def _sources(res: dict, b: int, ef: int) -> np.ndarray:
     ll, ml, off = (np.asarray(res[k][b][:nb]).astype(np.int64)
                    for k in ("ll", "ml", "off"))
     return ef + np.cumsum(ll + ml) - ml - off
-
-
-KEYS = ("nb_seq", "ll", "off", "ml", "lit_idx", "nb_lit", "overflow")
 
 
 @pytest.mark.parametrize("kind", KINDS)

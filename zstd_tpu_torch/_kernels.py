@@ -52,8 +52,9 @@ _SIGNATURES = {
                     "exec_seq_stats_len": []},
     "lazy_resolve.cu": {"lazy_resolve_launch": [_P, _P, _P, _P, _P, _P, _P,
                                                 _I, _I, _I, _I, _P]},
-    "xla_walk.cu": {"xla_walk_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                        _P]},
+    "xla_walk.cu": {"xla_walk_launch": [_P] * 14 + [_I, _I, _I, _I, _P],
+                    "xla_walk_scratch_bytes": [_I, _I],
+                    "xla_walk_max_clusters": [_I, _I]},
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its

@@ -9,12 +9,10 @@ bits; every product is split so that it never leaves the int64 range.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from .. import _kernels
 
 _M32 = 0xFFFFFFFF
 _P1 = 2654435761
@@ -77,10 +75,9 @@ def prev_same_bucket(h: torch.Tensor, valid_lens: torch.Tensor) -> torch.Tensor:
 #
 # Counterparts of match_lengths, backward_extension, greedy_resolve and
 # find_matches_block in zstd_tpu/ops/match.py (:100-233), batched over rows.
-# `xla_walk` is what extract_block needs from the two device loops there
-# (the `while_loop` of match_lengths and the `fori_loop` of greedy_resolve):
-# on a card one launch of csrc/xla_walk.cu, on the CPU the plain chain
-# `xla_walk_plain` (match_lengths -> mask -> greedy_resolve).
+# `xla_walk_plain` (match_lengths -> mask -> greedy_resolve) is the walk of
+# seqextract.xla_extract_plain; on a card one launch of csrc/xla_walk.cu
+# computes the walk and the emit after it (seqextract.xla_extract).
 
 MIN_MATCH_EMIT = 4
 MLEN_CAP = 4 + 4 * 8 * 255    # the JAX loop stops after 255 rounds of 32 bytes
@@ -275,7 +272,7 @@ def banned_candidates(blocks, valid_lens, hash_log, mls, emit_from, halo_ok,
 
 def xla_walk_plain(blocks: torch.Tensor, cands: torch.Tensor,
                    valid_lens: torch.Tensor, emit_from: torch.Tensor):
-    """The kernel's plain chain: match_lengths, masked to
+    """The walk's plain chain: match_lengths, masked to
     emit_from <= p < valid_len - 8, then greedy_resolve. Returns (committed
     u8[B, n], take_len int32[B, n]: the length where committed, else 0)."""
     n = blocks.shape[1]
@@ -283,64 +280,3 @@ def xla_walk_plain(blocks: torch.Tensor, cands: torch.Tensor,
     mlen = torch.where(_emit_mask(n, valid_lens, emit_from), mlen, 0)
     committed = greedy_resolve(mlen, valid_lens, _n_log2(n))
     return committed.to(torch.uint8), torch.where(committed, mlen, 0)
-
-
-def xla_walk(blocks: torch.Tensor, cands: torch.Tensor,
-             valid_lens: torch.Tensor, emit_from: torch.Tensor):
-    """(committed u8[B, n], take_len int32[B, n]) of `xla_walk_plain`.
-    blocks u8[B, n], cands int32[B, n] (-1 or below the position, as
-    prev_same_bucket gives them, after the halo ban), valid_lens and
-    emit_from int32[B] (valid_len <= n). CPU tensors take the plain chain;
-    CUDA tensors launch csrc/xla_walk.cu or raise."""
-    if blocks.device.type == "cpu":
-        return xla_walk_plain(blocks, cands, valid_lens, emit_from)
-    return _xla_walk_cuda(blocks, cands, valid_lens, emit_from, None)
-
-
-def xla_walk_stats(blocks: torch.Tensor, cands: torch.Tensor,
-                   valid_lens: torch.Tensor, emit_from: torch.Tensor):
-    """`xla_walk` on CUDA tensors, plus the kernel's int32[B, 6] counts per
-    row: commits, commits longer than the tile pass's 64 bytes, their
-    128-byte rounds, the walk's steps, and the SM cycles of the tile passes
-    and of the walk."""
-    if blocks.device.type == "cpu":
-        raise ValueError("xla_walk_stats: the counts come from the CUDA "
-                         "kernel; CPU tensors take xla_walk")
-    stats = torch.empty((blocks.shape[0], 6), dtype=torch.int32,
-                        device=blocks.device)
-    return _xla_walk_cuda(blocks, cands, valid_lens, emit_from, stats), stats
-
-
-def _xla_walk_cuda(blocks, cands, valid_lens, emit_from, stats):
-    B, n = blocks.shape
-    dev = blocks.device
-    if dev.type != "cuda":
-        raise ValueError(f"xla_walk: unsupported device {dev}")
-    for name, t, dtype, shape in (("blocks", blocks, torch.uint8, (B, n)),
-                                  ("cands", cands, torch.int32, (B, n)),
-                                  ("valid_lens", valid_lens, torch.int32,
-                                   (B,)),
-                                  ("emit_from", emit_from, torch.int32,
-                                   (B,))):
-        if not isinstance(t, torch.Tensor) or t.dtype != dtype \
-                or tuple(t.shape) != shape or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"xla_walk: {name} must be a contiguous {dtype} "
-                             f"tensor of shape {shape} on {dev}")
-    if blocks.data_ptr() % 4:
-        raise ValueError("xla_walk: blocks must be 4-byte aligned")
-    committed = torch.empty((B, n), dtype=torch.uint8, device=dev)
-    take_len = torch.empty((B, n), dtype=torch.int32, device=dev)
-    if B * n == 0:
-        return committed, take_len
-    lib = _kernels.get("xla_walk.cu")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.xla_walk_launch(
-            blocks.data_ptr(), cands.data_ptr(), valid_lens.data_ptr(),
-            emit_from.data_ptr(), committed.data_ptr(), take_len.data_ptr(),
-            0 if stats is None else stats.data_ptr(), B, n,
-            ctypes.c_void_p(stream))
-    _kernels.check(err, "xla_walk_launch")
-    _kernels.LAUNCHES["xla_walk"] += 1
-    return committed, take_len

@@ -14,7 +14,8 @@ torch.distributed:
     first block has its fabricated halo banned;
   - sequences and literals are emitted only for each block's own bytes
     (emit_from = halo), through the xla engine (ops/seqextract.
-    extract_batch_xla, the xla_walk kernel on a card);
+    extract_batch_xla: on a card the xla_walk kernel walks the greedy chain
+    and writes the seqstore and the literal index in one launch);
   - the ranks' stats are gathered and every rank plans every block's
     entropy tables (deterministic host code), packs its own blocks through
     pipeline._pack, and sends its tight compact prefix to rank 0, which

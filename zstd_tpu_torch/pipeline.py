@@ -19,8 +19,9 @@ Match extraction has four engines. Two are chosen as zstd_tpu chooses them:
 every level whose strategy is >= 3, else `pallas` (torch-op propose + the
 extract kernel). The `engine` argument ("pallas", "v3" or "xla") overrides
 both at every level, as ZSTD_TPU_ENGINE does there; `xla`
-(ops/seqextract.extract_batch_xla, the xla_walk kernel) is also the engine
-of parallel.zstdmt.compress_sharded.
+(ops/seqextract.extract_batch_xla: torch-op candidates, then the xla_walk
+kernel, from the greedy walk to the seqstore and the literal index in one
+launch) is also the engine of parallel.zstdmt.compress_sharded.
 
 Batches run in a window of three: stage A of batch k is enqueued before the
 host plans batch k-2 and assembles batch k-3, and the stats and compact
