@@ -47,6 +47,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 N_BLOCK = 128 * 1024           # main path: 128 KiB blocks
 CORPUS_BYTES = 16 * 1024 * 1024
 PREFIX_BYTES = 1024 * 1024
+LONG_BYTES = 64 * 1024 * 1024          # phase 9: discovery
+LONG_FRAME_BYTES = 16 * 1024 * 1024    # phase 9: compress_long_sharded
+LONG_PREFIX_BYTES = 4 * 1024 * 1024
 DEVICE = "cuda"
 
 
@@ -173,6 +176,33 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+class timed_calls:
+    """Within the block, calls of each (owner, attribute) add their host
+    wall time to `seconds[label]`."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.seconds = {}
+
+    def __enter__(self):
+        self.saved = [(obj, name, getattr(obj, name))
+                      for obj, name, _ in self.targets]
+        for (obj, name, fn), (_, _, label) in zip(self.saved, self.targets):
+            def run(*args, _fn=fn, _label=label, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kwargs)
+                finally:
+                    self.seconds[_label] = self.seconds.get(_label, 0.0) \
+                        + time.perf_counter() - t0
+            setattr(obj, name, run)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
 def profile_run(fn, retries: int = 6) -> dict:
     """Run fn() once under torch.profiler: the host wall time, the device's
     busy time (union of its kernel and copy intervals) and the device time
@@ -212,35 +242,21 @@ def profiled_encode(pipeline, dev, corpus: bytes, level: int,
     `encode()`): the host halves timed by wrapping them on the compressor
     class, the device's busy time, idle share and the top kernels by device
     time."""
-    host_s = {}
     cls = pipeline.TorchCompressor
-    saved = {name: getattr(cls, name) for name in ("_build_plans",
-                                                   "_finalize")}
-
-    def timed(name, fn):
-        def run(*args):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            host_s[name] = host_s.get(name, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
+    split = timed_calls([(cls, name, name)
+                         for name in ("_build_plans", "_finalize")])
     if encode is None:
         comp = pipeline.TorchCompressor(level=level, device=dev)
         encode = lambda: comp.compress(corpus)       # noqa: E731
     label = label or f"level {level}"
 
     def run():
-        host_s.clear()               # a rerun session counts once
+        split.seconds.clear()        # a rerun session counts once
         encode()
 
-    for name, fn in saved.items():
-        setattr(cls, name, timed(name, fn))
-    try:
+    with split:
         prof = profile_run(run)
-    finally:
-        for name, fn in saved.items():
-            setattr(cls, name, fn)
+    host_s = split.seconds
     print(f"{label} host: " + ", ".join(
         f"{k} {v * 1e3:.1f} ms" for k, v in host_s.items()), flush=True)
     if prof["busy_ms"] <= 0:
@@ -1056,6 +1072,235 @@ def xla_phase(dev, corpus: bytes) -> dict:
                 library_ms=None)
 
 
+def ldm_phase(dev) -> list:
+    """Phase 9: the sharded long-distance matcher in an NCCL group of one
+    rank (a gloo subgroup for the CPU leg). The ldm_fingerprint kernel
+    against `anchor_keys_plain` on 4 MiB of big_corpus, 1 MiB of zeros and
+    of random bytes, the two edge layouts at world 1 (valid = m and valid =
+    m - 56) and the 64 MiB long corpus's chunk; the ldm_lookback kernel
+    against `lookback_plain` on the sorted entries of that discovery and on
+    an input whose anchors pass cap in one owner (max_abs_err 0). Discovery
+    of the 64 MiB long corpus (tests/longcorpus.py): its anchors against the
+    port's host LdmState, anchors, candidates and find_long_matches of every
+    block against the port's own run on the CPU (gloo, plain versions), and
+    the blocks whose long matches differ from the host LdmState's (printed,
+    not asserted: the 12-deep look-back can miss host candidates); both
+    kernels' times (CUDA events) beside their byte bounds and their plain
+    versions' device times; the discovery's device profile by kernel name.
+    compress_long_sharded at level 1, long_log 27: the 4 MiB prefix's NCCL
+    frame against the gloo frame; the 16 MiB frame (size, ratio, MB/s best
+    of 2, the host split, the launches) decoded on the card. Returns the
+    two kernels' entries of the kernels line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from bigcorpus import big_corpus
+    from longcorpus import long_corpus
+    from zstd_tpu_torch import _kernels, device_decoder
+    from zstd_tpu_torch.format import block as tblock
+    from zstd_tpu_torch.format import ldm as tldm
+    from zstd_tpu_torch.format import opt as topt
+    from zstd_tpu_torch.ops import ldm as tops
+    from zstd_tpu_torch.parallel import ldm_sharded, shard_compress
+
+    data = long_corpus(LONG_BYTES)
+    full = np.frombuffer(data, np.uint8)
+    wlog = max(20, min(27, (len(data) - 1).bit_length()))
+    window = 1 << wlog
+
+    def chunk_of(arr, world=1, rank=0):
+        """rank's chunk of arr at `world`, on the card, and its layout."""
+        lay = ldm_sharded.layout(len(arr), world, window)
+        m, a = lay["m"], rank * lay["m"]
+        ext = np.zeros(m + tops.SPAN, np.uint8)
+        piece = arr[a:a + m + tops.SPAN]
+        ext[:len(piece)] = piece
+        valid = min(max(lay["n_pos"] - a, 0), m)
+        return torch.from_numpy(ext).to(dev), valid, lay
+
+    # ---- kernel 7 vs plain ------------------------------------------------
+    rng = np.random.default_rng(9)
+    big = np.frombuffer(big_corpus(4 * 1024 * 1024), np.uint8)
+    fp_cases = {
+        "4 MiB of big_corpus": chunk_of(big),
+        "1 MiB of zeros": chunk_of(np.zeros(1 << 20, np.uint8)),
+        "1 MiB of random bytes": chunk_of(rng.integers(0, 256, 1 << 20,
+                                                       dtype=np.uint8)),
+        "valid = m": chunk_of(full[:(1 << 20) + 63]),
+        "valid = m - 56": chunk_of(full[:(1 << 20) + 63 - 56]),
+        f"the {LONG_BYTES >> 20} MiB long corpus": chunk_of(full),
+    }
+    err7 = 0
+    for name, (ext, valid, lay) in fp_cases.items():
+        got = tops.anchor_keys(ext, valid)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, tops.anchor_keys_plain(ext, valid))
+        print(f"ldm_fingerprint {name}: m {lay['m']}, valid {valid}, anchors "
+              f"{int(got[0].sum())}, max_abs_err {e}", flush=True)
+        assert e == 0, f"ldm_fingerprint disagrees with its plain ({name})"
+        err7 = max(err7, e)
+    assert fp_cases["valid = m"][1] == fp_cases["valid = m"][2]["m"]
+    assert fp_cases["valid = m - 56"][1] == \
+        fp_cases["valid = m - 56"][2]["m"] - 56
+
+    # ---- the group: NCCL on the card, a gloo subgroup for the CPU leg -----
+    grp = shard_compress.init_group(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        cpu_grp = shard_compress.make_group(
+            device="cpu", pg=dist.new_group(backend="gloo"))
+        ext, valid, lay = fp_cases[f"the {LONG_BYTES >> 20} MiB long corpus"]
+        bs, cap = lay["block_size"], lay["cap"]
+
+        # ---- kernel 8 vs plain --------------------------------------------
+        entries = ldm_sharded.owner_entries_of(ext, valid, 0, grp, cap)
+        period = np.tile(np.random.default_rng(0).integers(
+            0, 256, 16, dtype=np.uint8), 4096)           # one anchor a period
+        p_ext, p_valid, p_lay = chunk_of(period)
+        p_flag = tops.anchor_keys(p_ext, p_valid)[0]
+        assert int(p_flag.sum()) > p_lay["cap"], "no owner passes cap"
+        p_entries = ldm_sharded.owner_entries_of(p_ext, p_valid, 0, grp,
+                                                 p_lay["cap"])
+        err8 = 0
+        for name, ent, b in ((f"the {LONG_BYTES >> 20} MiB discovery",
+                              entries, bs),
+                             (f"a period-16 input ({int(p_flag.sum())} "
+                              f"anchors, cap {p_lay['cap']})", p_entries,
+                              p_lay["block_size"])):
+            got = tops.lookback(ent, b, window)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, tops.lookback_plain(ent, b, window))
+            print(f"ldm_lookback {name}: {ent.numel()} entries, "
+                  f"{int((got[0] >= 0).sum())} anchors, "
+                  f"{int((got[1] >= 0).sum())} candidates, max_abs_err {e}",
+                  flush=True)
+            assert e == 0, f"ldm_lookback disagrees with its plain ({name})"
+            err8 = max(err8, e)
+
+        # ---- timings: kernels, plain versions, bounds ----------------------
+        t7 = cuda_ms(lambda: tops.anchor_keys(ext, valid))
+        p7 = cuda_ms(lambda: tops.anchor_keys_plain(ext, valid), reps=2)
+        # ext read once, the flag (1 B) and the key (4 B) written
+        b7 = (ext.numel() + 5 * lay["m"]) / HBM_BYTES_PER_S * 1e3
+        t8 = cuda_ms(lambda: tops.lookback(entries, bs, window))
+        p8 = cuda_ms(lambda: tops.lookback_plain(entries, bs, window), reps=2)
+        # 8 B an entry read, pos (4 B) and 4 candidates (16 B) written
+        b8 = entries.numel() * 28 / HBM_BYTES_PER_S * 1e3
+        print(f"ldm_fingerprint: kernel {t7:.4f} ms, plain {p7:.4f} ms "
+              f"device, bound {b7 * 1e3:.2f} us ({lay['m']} positions)",
+              flush=True)
+        print(f"ldm_lookback: kernel {t8:.4f} ms, plain {p8:.4f} ms device, "
+              f"bound {b8 * 1e3:.2f} us ({entries.numel()} entries)",
+              flush=True)
+
+        # ---- discovery of the long corpus at world 1 -----------------------
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        d_ms = host_ms(lambda: ldm_sharded.discover(
+            ext, valid, 0, grp, cap, bs, window))
+        st = ldm_sharded.ShardedLdmState(full, wlog, group=grp)
+        host = tldm.LdmState(full, wlog)
+        assert np.array_equal(st.anchors, host.anchors), \
+            "discovery: anchors differ from the host LdmState's"
+        t0 = time.perf_counter()
+        cpu = ldm_sharded.ShardedLdmState(full, wlog, group=cpu_grp)
+        cpu_s = time.perf_counter() - t0
+        assert np.array_equal(st.anchors, cpu.anchors) \
+            and np.array_equal(st.cands, cpu.cands), \
+            "discovery: nccl and gloo/cpu states differ"
+        n, blocks, vs_host = len(full), 0, 0
+        for b0 in range(0, n, bs):
+            b1 = min(b0 + bs, n)
+            mine = st.find_long_matches(b0, b1)
+            assert mine == cpu.find_long_matches(b0, b1), \
+                f"find_long_matches differ cuda/cpu at block {b0 // bs}"
+            host.insert_upto(b0)
+            vs_host += mine != host.find_long_matches(b0, b1)
+            blocks += 1
+        print(f"{LONG_BYTES >> 20} MiB discovery (window 2^{wlog}, m "
+              f"{lay['m']}, cap {cap}): "
+              f"{len(st.anchors)} anchors == host LdmState's; anchors, "
+              f"candidates and find_long_matches of {blocks} blocks: nccl == "
+              f"gloo/cpu (cpu run {cpu_s:.1f} s); blocks whose long matches "
+              f"differ from the host LdmState's: {vs_host}; discover() on the "
+              f"card {d_ms:.2f} ms host wall", flush=True)
+        prof = profile_run(lambda: ldm_sharded.discover(
+            ext, valid, 0, grp, cap, bs, window))
+        print(f"discovery profile: wall {prof['wall_ms']:.2f} ms, device busy "
+              f"{prof['busy_ms']:.3f} ms", flush=True)
+        for kern in ("ldm_fingerprint_kernel", "ldm_lookback_kernel"):
+            ms = sum(v for k, v in prof["by_name"].items() if kern in k)
+            print(f"  {kern}: {ms:.4f} ms of device time", flush=True)
+        for name, ms in sorted(prof["by_name"].items(),
+                               key=lambda kv: -kv[1])[:10]:
+            print(f"  {ms:9.4f} ms  {name[:100]}")
+
+        # ---- compress_long_sharded, level 1, long_log 27 -------------------
+        prefix = data[:LONG_PREFIX_BYTES]
+        f_gpu = ldm_sharded.compress_long_sharded(prefix, level=1,
+                                                  checksum=True, group=grp)
+        f_cpu = ldm_sharded.compress_long_sharded(prefix, level=1,
+                                                  checksum=True,
+                                                  group=cpu_grp)
+        assert f_gpu == f_cpu, "compress_long_sharded: nccl != gloo frame"
+        print(f"{LONG_PREFIX_BYTES >> 20} MiB prefix, compress_long_sharded: "
+              f"nccl frame == gloo/cpu "
+              f"frame ({len(f_gpu)} B)", flush=True)
+        corpus = data[:LONG_FRAME_BYTES]
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        split = timed_calls([
+            (ldm_sharded.ShardedLdmState, "__init__", "discovery"),
+            (ldm_sharded.ShardedLdmState, "find_long_matches",
+             "find_long_matches"),
+            (topt, "find_sequences_fast", "gap parse"),
+            (tblock, "compress_literals", "literals"),
+            (tblock, "write_sequences_section", "sequences")])
+        times = []
+        with split:
+            t0 = time.perf_counter()
+            frame = ldm_sharded.compress_long_sharded(corpus, level=1,
+                                                      group=grp)
+            times.append(time.perf_counter() - t0)
+        launches = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        frame2 = ldm_sharded.compress_long_sharded(corpus, level=1, group=grp)
+        times.append(time.perf_counter() - t0)
+        prof = profile_run(lambda: ldm_sharded.compress_long_sharded(
+            corpus, level=1, group=grp))
+    finally:
+        dist.destroy_process_group()
+    assert frame2 == frame, "two compress_long_sharded runs differ"
+    for k in ("ldm_fingerprint", "ldm_lookback"):
+        assert launches[k] == 1, f"kernel {k}: {launches[k]} launches"
+    print(f"compress_long_sharded, level 1, long_log 27, one rank: "
+          f"{len(corpus)} B -> {len(frame)} B, ratio "
+          f"{len(corpus) / len(frame):.4f}, "
+          f"{len(corpus) / min(times) / 1e6:.2f} MB/s (best of 2: "
+          f"{times[0]:.3f} s, {times[1]:.3f} s), launches {launches}; host "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                      for k, v in split.seconds.items()), flush=True)
+    print(f"  profiled run: wall {prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['busy_ms']:.3f} ms, idle share "
+          f"{1 - prof['busy_ms'] / prof['wall_ms']:.5f}", flush=True)
+    t0 = time.perf_counter()
+    out = device_decoder.device_decompress(frame, device=dev)
+    assert out == corpus, "the long frame does not decode to the corpus"
+    print(f"  decoded on the card by device_decompress: == corpus "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return [
+        dict(name="ldm_fingerprint", route="cuda",
+             source="zstd_tpu_torch/csrc/ldm_fingerprint.cu",
+             replaces="zstd_tpu/parallel/ldm_sharded.py:51-92 and :116-123",
+             launches=launches["ldm_fingerprint"], max_abs_err=err7, ms=t7,
+             plain_ms=p7, bound_ms=b7, bound_by="bytes", library_ms=None),
+        dict(name="ldm_lookback", route="cuda",
+             source="zstd_tpu_torch/csrc/ldm_lookback.cu",
+             replaces="zstd_tpu/parallel/ldm_sharded.py:152-170",
+             launches=launches["ldm_lookback"], max_abs_err=err8, ms=t8,
+             plain_ms=p8, bound_ms=b8, bound_by="bytes", library_ms=None),
+    ]
+
+
 def main() -> int:
     signal.alarm(1150)             # hard deadline: the default action exits
     import numpy as np
@@ -1087,7 +1332,9 @@ def main() -> int:
 
     # ---- 1. build ------------------------------------------------------
     t_build = _kernels.build_all()
-    print(f"build: {t_build:.1f} s", flush=True)
+    t_host = _kernels.build_host()
+    print(f"build: {t_build:.1f} s (nvcc), {t_host:.1f} s (cc, csrc/host)",
+          flush=True)
     for src, log in _kernels.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1279,6 +1526,9 @@ def main() -> int:
 
     # ---- 8. the xla engine and the one-frame sharded encode ----------------
     kernels.append(xla_phase(dev, corpus))
+
+    # ---- 9. the sharded long-distance matcher and --long -------------------
+    kernels += ldm_phase(dev)
     print(card_line(), flush=True)       # again, beside the numbers below
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,9 @@ def test_import_leaves_out_jax_and_zstd_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    for m in ("pipeline", "parallel.shard_compress", "parallel.zstdmt"):
+    for m in ("pipeline", "parallel.shard_compress", "parallel.zstdmt",
+              "parallel.ldm_sharded", "parallel.multihost", "ops.ldm",
+              "format.ldm", "format.opt", "format.frame"):
         assert f"zstd_tpu_torch.{m}" in modules
 
 

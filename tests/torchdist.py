@@ -19,10 +19,16 @@ JOIN_TIMEOUT = 120.0   # seconds for all ranks of one group
 
 def _rank_main(rank: int, world: int, store: str, jobs: list,
                out_path: str) -> None:
+    import numpy as np
+    import torch
     import torch.distributed as dist
 
-    from zstd_tpu_torch.parallel import shard_compress, zstdmt
+    from zstd_tpu_torch.parallel import (ldm_sharded, multihost,
+                                         shard_compress, zstdmt)
 
+    # one thread a rank: the ranks share the host with each other and with
+    # the test workers
+    torch.set_num_threads(1)
     grp = shard_compress.init_group(f"file://{store}", world, rank,
                                     device="cpu")
     try:
@@ -30,6 +36,23 @@ def _rank_main(rank: int, world: int, store: str, jobs: list,
         for name, kind, kwargs in jobs:
             if kind == "frame":
                 results[name] = zstdmt.compress_sharded(group=grp, **kwargs)
+            elif kind == "ldm":
+                results[name] = _ldm_job(ldm_sharded, grp, **kwargs)
+            elif kind == "long":
+                frame = ldm_sharded.compress_long_sharded(group=grp, **kwargs)
+                every = shard_compress.gather_bytes(
+                    np.frombuffer(frame, np.uint8), grp)
+                if any(f.tobytes() != frame for f in every):
+                    raise AssertionError(f"{name}: the ranks' frames differ")
+                results[name] = frame
+            elif kind == "gather":
+                if multihost.init_distributed() != (rank, world):
+                    raise AssertionError(f"{name}: init_distributed")
+                mine = kwargs["shards"][rank]
+                got = multihost.gather_and_concat(mine, grp)
+                if (got is None) != (rank != 0):
+                    raise AssertionError(f"{name}: rank {rank} got {got!r}")
+                results[name] = got
             else:
                 out = shard_compress.compress_step(grp, **kwargs)
                 results[name] = {k: v.numpy() for k, v in out.items()}
@@ -40,12 +63,30 @@ def _rank_main(rank: int, world: int, store: str, jobs: list,
         dist.destroy_process_group()
 
 
+def _ldm_job(ldm_sharded, grp, data: bytes, window_log: int,
+             block_size: int = 128 * 1024) -> dict:
+    """ShardedLdmState of `data` over the group: its anchors and candidates,
+    and find_long_matches of every block of `block_size` bytes."""
+    import numpy as np
+    full = np.frombuffer(data, dtype=np.uint8)
+    st = ldm_sharded.ShardedLdmState(full, window_log, group=grp)
+    n = len(full)
+    return dict(anchors=st.anchors, cands=st.cands,
+                matches=[st.find_long_matches(b0, min(b0 + block_size, n))
+                         for b0 in range(0, n, block_size)])
+
+
 def run_groups(worlds, workdir: str, jobs: list) -> dict:
-    """Run `jobs` ([(name, "frame" | "step", kwargs)]: compress_sharded or
-    compress_step keyword arguments, `group` left out) on one group of
-    spawned gloo ranks per world size, all groups at once. Returns
-    {world: {name: rank 0's result}}. Raises if a rank fails or the groups
-    outlive JOIN_TIMEOUT."""
+    """Run `jobs` ([(name, kind, kwargs)]) on one group of spawned gloo
+    ranks per world size, all groups at once. Kinds: "frame"
+    (compress_sharded), "step" (compress_step), "long"
+    (ldm_sharded.compress_long_sharded; every rank's frame must be rank
+    0's), each with its keyword arguments, `group` left out; "ldm"
+    (`_ldm_job`); "gather" (multihost.gather_and_concat of
+    kwargs["shards"][rank]; rank 0 must get the list, the others None, and
+    init_distributed() must return (rank, world)).
+    Returns {world: {name: rank 0's result}}. Raises if a rank fails or the
+    groups outlive JOIN_TIMEOUT."""
     os.makedirs(workdir, exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
     outs, procs = {}, []

@@ -8,10 +8,15 @@ boundary. Its arbitrary-precision accumulator is bit-for-bit equivalent to
 zstd's 64-bit accumulator + flush scheme (lib/common/bitstream.h:67-105).
 The backward reader starts at the final byte, strips the padding and the
 sentinel, then consumes fields in reverse field order; the forward reader
-parses FSE table descriptions.
+parses FSE table descriptions. `pack_fields` writes the same bytes as a
+BitWriter fed every field in order, in numpy: the encoders' streams are too
+long for the writer's big-integer accumulator, whose cost grows with the
+stream at every field.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from ..errors import Corruption
 
@@ -37,6 +42,23 @@ class BitWriter:
         self.nbits += 1
         nbytes = (self.nbits + 7) // 8
         return self.acc.to_bytes(nbytes, "little")
+
+
+def pack_fields(values, nbits) -> bytes:
+    """BitWriter.add(values[i], nbits[i]) for every i in order, then close():
+    each field's low nbits[i] bits (at most 63), LSB first, then the 1-bit
+    sentinel and zero padding to a byte boundary."""
+    values = np.asarray(values, dtype=np.uint64)
+    nbits = np.asarray(nbits, dtype=np.int64)
+    ends = np.cumsum(nbits)
+    total = int(ends[-1]) if len(ends) else 0
+    starts = ends - nbits
+    bits = np.zeros(total + 1, dtype=np.uint8)
+    for j in range(int(nbits.max(initial=0))):
+        sel = nbits > j
+        bits[starts[sel] + j] = (values[sel] >> np.uint64(j)) & np.uint64(1)
+    bits[total] = 1
+    return np.packbits(bits, bitorder="little").tobytes()
 
 
 class BitReader:

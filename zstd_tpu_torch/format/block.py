@@ -1,21 +1,80 @@
-"""Host block decoder: literals + sequences + sequence execution.
+"""Host block encoder and decoder: literals + sequences (+ execution).
 
-Copy of BlockDState and decompress_block in zstd_tpu/format/block.py
-(zstd's lib/decompress/zstd_decompress_block.c
-ZSTD_decompressBlock_internal + ZSTD_execSequence:1001). The device decoder
-sends a frame whose blocks the device cannot take here.
+Copy of BlockCState, compress_block, BlockDState and decompress_block in
+zstd_tpu/format/block.py (zstd's lib/compress/zstd_compress.c
+ZSTD_compressBlock_internal:4325, ZSTD_entropyCompressSeqStore:3001's
+raw/RLE gates; lib/decompress/zstd_decompress_block.c
+ZSTD_decompressBlock_internal + ZSTD_execSequence:1001). The encoder's
+sequences come from the long-distance matcher only (the one caller is the
+host frame encoder of parallel/ldm_sharded.py); the device decoder sends a
+frame whose blocks the device cannot take to the decoder here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..constants import REPCODE_INIT
+from ..constants import MIN_MATCH, REPCODE_INIT
 from ..errors import Corruption
-from .literals import HufDecodeState, decode_literals
+from .ldm import find_sequences_ldm
+from .literals import (HufDecodeState, HufEntropyState, _min_gain,
+                       compress_literals, decode_literals)
 from .matchfinder import resolve_offset, update_reps
-from .sequences import (FseDecodeState, decode_sequences,
-                        parse_sequences_section)
+from .sequences import (FseDecodeState, FseEntropyState, _EmitRawBlock,
+                        decode_sequences, parse_sequences_section,
+                        write_sequences_section)
+
+
+@dataclasses.dataclass
+class BlockCState:
+    """Carried compressor state across blocks of one frame."""
+    huf: HufEntropyState = dataclasses.field(default_factory=HufEntropyState)
+    fse: FseEntropyState = dataclasses.field(default_factory=FseEntropyState)
+    reps: tuple[int, int, int] = REPCODE_INIT
+
+
+def compress_block(full, block_start: int, block_end: int, window_low: int,
+                   state: BlockCState, cparams, ldm_ctx
+                   ) -> tuple[bytes, int, BlockCState]:
+    """Compress one block. Returns (payload, block_type, next_state).
+
+    block_type: 0 raw, 1 RLE, 2 compressed (constants.BT_*). The caller wraps
+    with the 3-byte block header. State only advances on compressed blocks,
+    mirroring ZSTD_blockState_confirmRepcodesAndEntropyTables.
+    """
+    src = full[block_start:block_end]
+    n = block_end - block_start
+    raw = (src.tobytes(), 0, state)
+
+    if n < MIN_MATCH + 1 + 8:
+        return raw
+
+    seqs, new_reps = find_sequences_ldm(full, block_start, block_end,
+                                        window_low, state.reps, cparams,
+                                        ldm_ctx)
+    strategy = cparams.strategy
+    try:
+        num_seq = seqs.nb_seq
+        num_lit = len(seqs.literals)
+        suspect = (num_seq == 0) or (num_lit // max(num_seq, 1) >= 20)
+        lit_section, next_huf = compress_literals(
+            seqs.literals, state.huf, strategy, disable=False,
+            suspect_uncompressible=suspect)
+        seq_section, next_fse = write_sequences_section(seqs, state.fse,
+                                                        strategy)
+    except _EmitRawBlock:
+        return raw
+    payload = lit_section + seq_section
+
+    max_c_size = n - _min_gain(n, strategy)
+    if len(payload) >= max_c_size:
+        # not compressible: raw, or RLE when the whole block is one byte
+        if n > 1 and (src == src[0]).all():
+            return bytes(src[:1]), 1, state
+        return raw
+
+    nxt = dataclasses.replace(state, huf=next_huf, fse=next_fse, reps=new_reps)
+    return payload, 2, nxt
 
 
 @dataclasses.dataclass

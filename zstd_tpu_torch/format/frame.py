@@ -1,15 +1,19 @@
-"""Frame headers, the host frame decoder and skippable frames.
+"""Frame headers, the host frame encoder of the long-distance path, the
+host frame decoder and skippable frames.
 
-Copy of write_frame_header, FrameHeader, parse_frame_header, is_skippable
-and the Python branch of decompress_frame in zstd_tpu/format/frame.py
-(zstd's lib/compress/zstd_compress.c ZSTD_writeFrameHeader:4626,
-lib/decompress/zstd_decompress.c ZSTD_getFrameHeader_advanced:447 and
-ZSTD_decompressFrame:951).
+Copy of write_frame_header, FrameHeader, parse_frame_header, is_skippable,
+the Python branches of _split_points and decompress_frame, and of
+compress_frame's per-block loop in zstd_tpu/format/frame.py (zstd's
+lib/compress/zstd_compress.c ZSTD_writeFrameHeader:4626 and
+ZSTD_compress_frameChunk:4527, lib/decompress/zstd_decompress.c
+ZSTD_getFrameHeader_advanced:447 and ZSTD_decompressFrame:951).
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_RAW,
                          BT_RESERVED, BT_RLE, SKIPPABLE_MAGIC_MAX,
@@ -17,7 +21,7 @@ from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_RAW,
                          ZSTD_MAGIC)
 from ..errors import Corruption, ZstdError, ZstdErrorCode
 from ..xxhash64 import content_checksum
-from .block import BlockDState, decompress_block
+from .block import BlockCState, BlockDState, compress_block, decompress_block
 
 
 @dataclasses.dataclass
@@ -76,6 +80,96 @@ def write_frame_header(src_size: int, window_log: int, checksum: bool,
         out += src_size.to_bytes(4, "little")
     else:
         out += src_size.to_bytes(8, "little")
+    return bytes(out)
+
+
+def _split_points(full: np.ndarray, bs: int, be: int) -> list[int]:
+    """Entropy-divergence pre-split inside one block (ZSTD_splitBlock /
+    zstd_preSplit.c fingerprint-divergence analog, vectorized): compare each
+    4 KiB chunk's coarse byte histogram against the running segment
+    histogram and cut where the L1 divergence passes 0.35, no segment
+    under 16 KiB. Returns interior split offsets."""
+    chunk, min_seg, threshold = 4096, 16384, 0.35
+    n = be - bs
+    if n < 2 * min_seg:
+        return []
+    nch = n // chunk
+    if nch < 2:
+        return []
+    v = (full[bs : bs + nch * chunk] >> 2).reshape(nch, chunk)
+    # one bincount over (chunk_id << 6 | bucket) does all chunks at once
+    idx = (np.arange(nch, dtype=np.int64)[:, None] << 6) | v.astype(np.int64)
+    hists = np.bincount(idx.ravel(), minlength=nch * 64).reshape(nch, 64)
+    splits = []
+    seg_hist = hists[0].astype(np.float64)
+    seg_n = 1
+    for c in range(1, nch):
+        ref = seg_hist / (seg_n * chunk)
+        cur = hists[c] / chunk
+        div = float(np.abs(ref - cur).sum()) / 2.0
+        off = c * chunk
+        if div > threshold and off >= min_seg and n - off >= min_seg:
+            splits.append(bs + off)
+            seg_hist = hists[c].astype(np.float64)
+            seg_n = 1
+        else:
+            seg_hist += hists[c]
+            seg_n += 1
+    return splits
+
+
+def compress_frame(data: bytes, cparams, checksum: bool = False,
+                   ldm_state=None) -> bytes:
+    """One full zstd frame through the long-distance matcher `ldm_state` (a
+    parallel/ldm_sharded.ShardedLdmState or a format/ldm.LdmState): the
+    per-block loop of zstd_tpu's compress_frame (ZSTD_compressContinue_internal
+    driver shape) with its content-divergence pre-split, for no prefix and no
+    target block size. Strategies 5 and up (seqstore splitting) raise."""
+    if ldm_state is None:
+        raise ValueError("the port's host frame encoder is the long-distance "
+                         "path's: pass an ldm_state")
+    if cparams.strategy >= 5:
+        raise ValueError(f"strategy {cparams.strategy}: the port's host frame "
+                         f"encoder has no seqstore splitting (strategy < 5)")
+    n = len(data)
+    window_log = cparams.window_log
+    out = bytearray(write_frame_header(n, window_log, checksum))
+
+    if n == 0:
+        out += (1 | (BT_RAW << 1) | (0 << 3)).to_bytes(3, "little")
+        if checksum:
+            out += content_checksum(b"").to_bytes(4, "little")
+        return bytes(out)
+
+    full = np.frombuffer(data, dtype=np.uint8)
+    window_size = 1 << window_log
+    block_size = min(window_size, BLOCK_MAX_SIZE)
+    state = BlockCState()
+    pos = 0
+    while pos < n:
+        end = min(pos + block_size, n)
+        if end - pos >= 32768:
+            # content-divergence pre-split (zstd_preSplit.c analog): phase-
+            # shifts the block grid onto content transitions
+            pts = _split_points(full, pos, end)
+            if pts:
+                end = pts[0]
+        last = end == n
+        # window floor from the region END, not its start (the reference's
+        # ZSTD_window_enforceMaxDist role; zstd_tpu cuts regions into pieces
+        # at other levels, and keeps this floor for every level)
+        window_low = max(0, end - window_size)
+        payload, btype, state = compress_block(
+            full, pos, end, window_low, state, cparams, ldm_state)
+        if btype == BT_RLE:
+            bh = int(last) | (BT_RLE << 1) | ((end - pos) << 3)
+        else:
+            bh = int(last) | (btype << 1) | (len(payload) << 3)
+        out += bh.to_bytes(3, "little")
+        out += payload
+        pos = end
+    if checksum:
+        out += content_checksum(data).to_bytes(4, "little")
     return bytes(out)
 
 

@@ -5,8 +5,10 @@ construction with the 11-bit height limit (zstd's lib/compress/huf_compress.c
 HUF_sort:620, HUF_buildTree:681, HUF_setMaxHeight:376,
 HUF_buildCTableFromTree:730), the tree description serialization
 (HUF_writeCTable_wksp:248, HUF_compressWeights:147) and its parsing
-(HUF_readStats), the single-symbol decode table, and the 1- and 4-stream
-host decoders.
+(HUF_readStats), the single-symbol decode table, the 1- and 4-stream
+host decoders, and the 1- and 4-stream encoders (HUF_compress1X_usingCTable,
+HUF_compress4X_usingCTable; their bytes are the Python branches', written
+through bitstream.pack_fields).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 from ..constants import HUF_WEIGHT_FSE_LOG_MAX, highbit32
 from ..errors import Corruption
 from . import fse
-from .bitstream import BitReader
+from .bitstream import BitReader, pack_fields
 
 HUF_TABLELOG_ABSOLUTEMAX = 12
 HUF_TABLELOG_DEFAULT = 11
@@ -203,6 +205,42 @@ def build_huf_ctable(count: np.ndarray, max_symbol: int,
             value[sym] = vpr[b]
             vpr[b] += 1
     return HufCTable(max_nb_bits, max_symbol, nb_bits, value)
+
+
+def huf_estimate_compressed_size(ct: HufCTable, count: np.ndarray,
+                                 max_symbol: int) -> int:
+    bits = int(np.sum(ct.nb_bits[: max_symbol + 1] * count[: max_symbol + 1]))
+    return bits >> 3
+
+
+def huf_validate_ctable(ct: HufCTable, count: np.ndarray, max_symbol: int) -> bool:
+    if max_symbol > ct.max_symbol:
+        return False
+    for s in range(max_symbol + 1):
+        if count[s] != 0 and ct.nb_bits[s] == 0:
+            return False
+    return True
+
+
+def huf_encode_1x(data: bytes, ct: HufCTable) -> bytes:
+    """HUF_compress1X_usingCTable: symbols encoded last-to-first."""
+    syms = np.frombuffer(data, dtype=np.uint8)[::-1]
+    return pack_fields(ct.value[syms], ct.nb_bits[syms])
+
+
+def huf_encode_4x(data: bytes, ct: HufCTable) -> bytes | None:
+    """HUF_compress4X_usingCTable: 4 segments + 6-byte jump table.
+    Returns None when a stream exceeds format limits (caller falls back)."""
+    n = len(data)
+    if n < 12:
+        return None
+    seg = (n + 3) // 4
+    parts = [data[i * seg : min((i + 1) * seg, n)] for i in range(4)]
+    streams = [huf_encode_1x(p, ct) for p in parts]
+    if any(len(s) == 0 or len(s) > 65535 for s in streams[:3]):
+        return None
+    jump = b"".join(len(s).to_bytes(2, "little") for s in streams[:3])
+    return jump + b"".join(streams)
 
 
 def huf_optimal_table_log(max_table_log: int, src_size: int, max_symbol: int) -> int:

@@ -1,10 +1,12 @@
-"""Sequences section: encoding-type selection and table builds (encoder),
-header parsing and the 3-state FSE sequence decode (decoder).
+"""Sequences section: encoding-type selection, table builds and the section
+writer (encoder), header parsing and the 3-state FSE sequence decode
+(decoder).
 
 Copy of the Python branches of zstd_tpu/format/sequences.py that the device
-pipeline's host planning and the device decoder's host parse use. Parity
-targets: zstd's lib/compress/zstd_compress_sequences.c
-(ZSTD_selectEncodingType, ZSTD_buildCTable, ZSTD_fseBitCost),
+pipeline's host planning, the host frame encoder (format/frame.py) and the
+device decoder's host parse use. Parity targets: zstd's
+lib/compress/zstd_compress_sequences.c (ZSTD_selectEncodingType,
+ZSTD_buildCTable, ZSTD_fseBitCost, ZSTD_encodeSequences_body:291),
 lib/compress/zstd_compress.c ZSTD_buildSequencesStatistics:2757 (LL table,
 then OF, then ML; set_compressed decrements the last sequence's code count
 before normalization) and lib/decompress/zstd_decompress_block.c
@@ -25,10 +27,11 @@ from ..constants import (
     ML_BASE, ML_BITS, ML_DEFAULT_DIST, ML_DEFAULT_LOG, ML_FSE_LOG,
     MODE_FSE, MODE_PREDEFINED, MODE_REPEAT, MODE_RLE,
     OF_DEFAULT_DIST, OF_DEFAULT_LOG, OF_FSE_LOG,
+    _LL_CODE_TABLE, _ML_CODE_TABLE,
 )
 from ..errors import Corruption
 from . import fse
-from .bitstream import BitReader
+from .bitstream import BitReader, pack_fields
 
 LONGNBSEQ = 0x7F00
 DEFAULT_MAX_OFF = 28  # largest offset code in the predefined distribution
@@ -200,6 +203,92 @@ class FseEntropyState:
                                self.ll_repeat, self.of_repeat, self.ml_repeat)
 
 
+@dataclasses.dataclass
+class SeqStore:
+    """Canonical sequence intermediate (SoA; mirrors seqDef semantics but with
+    full-width int32 lengths — no 16-bit longLength workaround needed)."""
+    lit_length: np.ndarray  # int32[n]
+    off_base: np.ndarray    # int32[n] == spec Offset_Value
+    ml_base: np.ndarray     # int32[n] == matchLength - MINMATCH
+    literals: bytes         # all literal bytes (incl. trailing run)
+
+    @property
+    def nb_seq(self) -> int:
+        return len(self.lit_length)
+
+
+def seq_to_codes_np(ll: np.ndarray, ob: np.ndarray, mlb: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Vectorized numpy code conversion (exact for values < 2^53)."""
+    def hb(x):
+        return (np.frexp(x.astype(np.float64))[1] - 1).astype(np.int32)
+    ll = np.asarray(ll, dtype=np.int64)
+    ob = np.asarray(ob, dtype=np.int64)
+    mlb = np.asarray(mlb, dtype=np.int64)
+    llc = np.where(ll > 63, hb(np.maximum(ll, 1)) + 19,
+                   _LL_CODE_TABLE[np.minimum(ll, 63)])
+    mlc = np.where(mlb > 127, hb(np.maximum(mlb, 1)) + 36,
+                   _ML_CODE_TABLE[np.minimum(mlb, 127)])
+    ofc = hb(ob)
+    return llc.astype(np.int32), ofc.astype(np.int32), mlc.astype(np.int32)
+
+
+def _state_chain(ct: fse.CTable, codes: np.ndarray):
+    """One FSE state over codes[n-1] (its initial symbol), then codes[n-2]
+    .. codes[0] (fse.CState's init and encode): the (value, nbits) field
+    written before each of those n - 1 symbols, and the final state."""
+    st = ct.state_table.tolist()
+    dnb = ct.delta_nb_bits.tolist()
+    dfs = ct.delta_find_state.tolist()
+    first = int(codes[-1])
+    nb_out = (dnb[first] + (1 << 15)) >> 16
+    value = st[(((nb_out << 16) - dnb[first]) >> nb_out) + dfs[first]]
+    vals, nbs = [], []
+    for sym in codes[-2::-1].tolist():
+        nb_out = (value + dnb[sym]) >> 16
+        vals.append(value)
+        nbs.append(nb_out)
+        value = st[(value >> nb_out) + dfs[sym]]
+    return vals, nbs, value
+
+
+def encode_sequences(seqs: SeqStore, llc: np.ndarray, ofc: np.ndarray,
+                     mlc: np.ndarray, ct_ll: fse.CTable, ct_of: fse.CTable,
+                     ct_ml: fse.CTable) -> bytes:
+    """ZSTD_encodeSequences_body's bitstream: the last sequence's extra bits
+    (LL, ML, OF), then for each earlier sequence, last to first, the OF, ML
+    and LL state fields and its LL, ML and OF extra bits, then the ML, OF
+    and LL final states. The three state chains are independent, so each
+    runs alone; the fields are then interleaved and packed at once."""
+    n = seqs.nb_seq
+    assert n > 0
+    vals = np.zeros(6 * n, dtype=np.int64)
+    nbits = np.zeros(6 * n, dtype=np.int64)
+    ll = seqs.lit_length.astype(np.int64)
+    mb = seqs.ml_base.astype(np.int64)
+    ob = seqs.off_base.astype(np.int64)
+    # extra bits: the last sequence's at fields 0-2, sequence i < n - 1's at
+    # fields 3 + 6 (n - 2 - i) + 3..5
+    at = np.concatenate(([0], 6 + 6 * np.arange(n - 1)))
+    order = np.concatenate(([n - 1], np.arange(n - 2, -1, -1)))
+    for j, (x, b) in enumerate(((ll, LL_BITS[llc]), (mb, ML_BITS[mlc]),
+                                (ob, ofc))):
+        vals[at + j] = x[order]
+        nbits[at + j] = np.asarray(b, dtype=np.int64)[order]
+    states = 3 + 6 * np.arange(n - 1)
+    finals = []
+    for j, (ct, codes) in enumerate(((ct_of, ofc), (ct_ml, mlc),
+                                     (ct_ll, llc))):
+        v, b, last = _state_chain(ct, np.asarray(codes))
+        vals[states + j] = v
+        nbits[states + j] = b
+        finals.append((last, ct.table_log))
+    for j, (last, tlog) in enumerate((finals[1], finals[0], finals[2])):
+        vals[6 * n - 3 + j] = last
+        nbits[6 * n - 3 + j] = tlog
+    return pack_fields(vals, nbits)
+
+
 def write_nbseq_header(n: int) -> bytes:
     out = bytearray()
     if n < 128:
@@ -276,6 +365,44 @@ def build_sequences_header_from_hists(
     out += of_hdr
     out += ml_hdr
     return bytes(out), nxt, last_count_size
+
+
+def build_sequences_header(llc: np.ndarray, ofc: np.ndarray, mlc: np.ndarray,
+                           nb_seq: int, prev: FseEntropyState, strategy: int
+                           ) -> tuple[bytes, FseEntropyState, int]:
+    """Header+tables (no bitstream) from full code arrays."""
+    if nb_seq == 0:
+        return write_nbseq_header(0), prev.copy(), 0
+    hists = tuple(np.bincount(c, minlength=m + 1).astype(np.int64)
+                  for c, m in ((llc, MAX_LL_CODE), (ofc, MAX_OFF_CODE),
+                               (mlc, MAX_ML_CODE)))
+    last = (int(llc[nb_seq - 1]), int(ofc[nb_seq - 1]), int(mlc[nb_seq - 1]))
+    return build_sequences_header_from_hists(hists[0], hists[1], hists[2],
+                                             last, nb_seq, prev, strategy)
+
+
+def write_sequences_section(seqs: SeqStore, prev: FseEntropyState,
+                            strategy: int) -> tuple[bytes, FseEntropyState]:
+    """Serialize nbSeq header + modes + tables + bitstream; returns the bytes
+    and the next entropy state. Mirrors ZSTD_entropyCompressSeqStore_internal
+    (sequences part) including the <=1.3.4 lastCountSize workaround."""
+    n = seqs.nb_seq
+    if n == 0:
+        return write_nbseq_header(0), prev.copy()
+    llc, ofc, mlc = seq_to_codes_np(seqs.lit_length, seqs.off_base,
+                                    seqs.ml_base)
+    header, nxt, last_count_size = build_sequences_header(
+        llc, ofc, mlc, n, prev, strategy)
+    bitstream = encode_sequences(seqs, llc, ofc, mlc,
+                                 nxt.ct_ll, nxt.ct_of, nxt.ct_ml)
+    if last_count_size and (last_count_size + len(bitstream)) < 4:
+        # zstd <=1.3.4 decoder bug workaround: signal caller to emit raw block
+        raise _EmitRawBlock()
+    return header + bitstream, nxt
+
+
+class _EmitRawBlock(Exception):
+    """Internal: the <=1.3.4 workaround forces a raw block."""
 
 
 # --------------------------------------------------------------------------
