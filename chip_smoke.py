@@ -25,8 +25,11 @@ candidates to the seqstore and the literal index in one launch, against
 its plain chain and its counts against tests/xlaextractmodel.py, the 16 MiB
 level-1 encode under engine="xla", and
 parallel.zstdmt.compress_sharded in an NCCL group of one rank against a
-gloo group on the CPU, its 16 MiB frame decoded on the card), and prints
-one JSON line of kernel timings before its last line:
+gloo group on the CPU, its 16 MiB frame decoded on the card), drives the
+sharded long-distance matcher and compress_long_sharded at levels 1, 3
+and 19 (phase 9), and the multi-host pzstd, compress_my_shard and
+decompress_stream, on the host codec (phase 10), and prints one JSON line
+of kernel timings before its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -50,6 +53,8 @@ PREFIX_BYTES = 1024 * 1024
 LONG_BYTES = 64 * 1024 * 1024          # phase 9: discovery
 LONG_FRAME_BYTES = 16 * 1024 * 1024    # phase 9: compress_long_sharded
 LONG_PREFIX_BYTES = 4 * 1024 * 1024
+LONG_L19_BYTES = 2 * 1024 * 1024       # phase 9: the level-19 leg
+PZSTD_L19_BYTES = 2 * 1024 * 1024      # phase 10: level 19 and the decode
 DEVICE = "cuda"
 
 
@@ -1087,10 +1092,15 @@ def ldm_phase(dev) -> list:
     not asserted: the 12-deep look-back can miss host candidates); both
     kernels' times (CUDA events) beside their byte bounds and their plain
     versions' device times; the discovery's device profile by kernel name.
-    compress_long_sharded at level 1, long_log 27: the 4 MiB prefix's NCCL
-    frame against the gloo frame; the 16 MiB frame (size, ratio, MB/s best
-    of 2, the host split, the launches) decoded on the card. Returns the
-    two kernels' entries of the kernels line."""
+    compress_long_sharded at levels 1 and 3, long_log 27: the 4 MiB
+    prefix's NCCL frame against the gloo frame; the 16 MiB frame (size,
+    ratio, MB/s best of 2, the host split with the level's gap parser, the
+    launches) decoded on the card; at level 19 (the DP gap parse and the
+    seqstore splitting), on 2 MiB of the long corpus with a 512 KiB segment,
+    the NCCL frame against the gloo frame, its MB/s and launches, decoded on
+    the card. Both kernels launch
+    once in each level's run. Returns the two kernels' entries of the
+    kernels line."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1099,7 +1109,6 @@ def ldm_phase(dev) -> list:
     from zstd_tpu_torch import _kernels, device_decoder
     from zstd_tpu_torch.format import block as tblock
     from zstd_tpu_torch.format import ldm as tldm
-    from zstd_tpu_torch.format import opt as topt
     from zstd_tpu_torch.ops import ldm as tops
     from zstd_tpu_torch.parallel import ldm_sharded, shard_compress
 
@@ -1252,7 +1261,7 @@ def ldm_phase(dev) -> list:
             (ldm_sharded.ShardedLdmState, "__init__", "discovery"),
             (ldm_sharded.ShardedLdmState, "find_long_matches",
              "find_long_matches"),
-            (topt, "find_sequences_fast", "gap parse"),
+            (tldm, "find_sequences_fast", "gap parse"),
             (tblock, "compress_literals", "literals"),
             (tblock, "write_sequences_section", "sequences")])
         times = []
@@ -1267,11 +1276,56 @@ def ldm_phase(dev) -> list:
         times.append(time.perf_counter() - t0)
         prof = profile_run(lambda: ldm_sharded.compress_long_sharded(
             corpus, level=1, group=grp))
+
+        # ---- level 3: the chain-lazy gap parse ------------------------------
+        f3 = [ldm_sharded.compress_long_sharded(prefix, level=3,
+                                                checksum=True, group=g)
+              for g in (grp, cpu_grp)]
+        assert f3[0] == f3[1], "compress_long_sharded level 3: nccl != gloo"
+        print(f"{LONG_PREFIX_BYTES >> 20} MiB prefix, compress_long_sharded "
+              f"level 3: nccl frame == gloo/cpu frame ({len(f3[0])} B)",
+              flush=True)
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        split3 = timed_calls([
+            (ldm_sharded.ShardedLdmState, "__init__", "discovery"),
+            (ldm_sharded.ShardedLdmState, "find_long_matches",
+             "find_long_matches"),
+            (tldm, "find_sequences_chainlazy", "gap parse"),
+            (tblock, "compress_literals", "literals"),
+            (tblock, "write_sequences_section", "sequences")])
+        times3 = []
+        with split3:
+            t0 = time.perf_counter()
+            frame3 = ldm_sharded.compress_long_sharded(corpus, level=3,
+                                                       group=grp)
+            times3.append(time.perf_counter() - t0)
+        launches3 = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        assert ldm_sharded.compress_long_sharded(
+            corpus, level=3, group=grp) == frame3, "two level-3 runs differ"
+        times3.append(time.perf_counter() - t0)
+
+        # ---- level 19: the DP gap parse and the seqstore splitting ----------
+        # a 512 KiB segment repeated: long matches inside the 2 MiB
+        data19 = long_corpus(LONG_L19_BYTES, seg=512 * 1024)
+        f19_cpu = ldm_sharded.compress_long_sharded(
+            data19, level=19, checksum=True, group=cpu_grp)
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        frame19 = ldm_sharded.compress_long_sharded(
+            data19, level=19, checksum=True, group=grp)
+        t19 = time.perf_counter() - t0
+        launches19 = dict(_kernels.LAUNCHES)
+        assert frame19 == f19_cpu, "compress_long_sharded level 19: nccl " \
+            "!= gloo"
     finally:
         dist.destroy_process_group()
     assert frame2 == frame, "two compress_long_sharded runs differ"
-    for k in ("ldm_fingerprint", "ldm_lookback"):
-        assert launches[k] == 1, f"kernel {k}: {launches[k]} launches"
+    for lv, got in ((1, launches), (3, launches3), (19, launches19)):
+        for k in ("ldm_fingerprint", "ldm_lookback"):
+            assert got[k] == 1, f"kernel {k}: {got[k]} launches at level {lv}"
     print(f"compress_long_sharded, level 1, long_log 27, one rank: "
           f"{len(corpus)} B -> {len(frame)} B, ratio "
           f"{len(corpus) / len(frame):.4f}, "
@@ -1287,6 +1341,29 @@ def ldm_phase(dev) -> list:
     assert out == corpus, "the long frame does not decode to the corpus"
     print(f"  decoded on the card by device_decompress: == corpus "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"compress_long_sharded, level 3, long_log 27, one rank: "
+          f"{len(corpus)} B -> {len(frame3)} B, ratio "
+          f"{len(corpus) / len(frame3):.4f}, "
+          f"{len(corpus) / min(times3) / 1e6:.2f} MB/s (best of 2: "
+          f"{times3[0]:.3f} s, {times3[1]:.3f} s), launches {launches3}; "
+          "host " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                              for k, v in split3.seconds.items()),
+          flush=True)
+    t0 = time.perf_counter()
+    out = device_decoder.device_decompress(frame3, device=dev)
+    assert out == corpus, "the level-3 long frame does not decode"
+    print(f"  decoded on the card by device_decompress: == corpus "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"compress_long_sharded, level 19, long_log 27, one rank: "
+          f"{len(data19)} B -> {len(frame19)} B (nccl == gloo/cpu), ratio "
+          f"{len(data19) / len(frame19):.4f}, "
+          f"{len(data19) / t19 / 1e6:.2f} MB/s ({t19:.3f} s), launches "
+          f"{launches19}", flush=True)
+    t0 = time.perf_counter()
+    out = device_decoder.device_decompress(frame19, device=dev)
+    assert out == data19, "the level-19 long frame does not decode"
+    print(f"  decoded on the card by device_decompress: == input "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return [
         dict(name="ldm_fingerprint", route="cuda",
              source="zstd_tpu_torch/csrc/ldm_fingerprint.cu",
@@ -1299,6 +1376,57 @@ def ldm_phase(dev) -> list:
              launches=launches["ldm_lookback"], max_abs_err=err8, ms=t8,
              plain_ms=p8, bound_ms=b8, bound_by="bytes", library_ms=None),
     ]
+
+
+def pzstd_phase(corpus: bytes) -> None:
+    """Phase 10: the multi-host pzstd in an NCCL group of one rank.
+    compress_my_shard takes its index and count from the group; at levels 1
+    and 3 on the 16 MiB big_corpus (4 MiB chunks: spawned worker processes)
+    and at level 19 on its 2 MiB prefix (one chunk), each equals
+    pzstd_compress(..., shard_index=0, shard_count=1); MB/s of each.
+    decompress_stream inverts the level-19 stream (the host decoder's
+    Python branch). This path is host-only by design, as in zstd_tpu: no
+    kernel launches."""
+    import torch.distributed as dist
+    from zstd_tpu_torch import _kernels
+    from zstd_tpu_torch.parallel import multihost, pzstd, shard_compress
+
+    shard_compress.init_group(f"tcp://127.0.0.1:{free_port()}", 1, 0)
+    try:
+        assert multihost.init_distributed() == (0, 1)
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        streams = {}
+        for level, data in ((1, corpus), (3, corpus),
+                            (19, corpus[:PZSTD_L19_BYTES])):
+            t0 = time.perf_counter()
+            mine = multihost.compress_my_shard(data, level=level)
+            t_mine = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = pzstd.pzstd_compress(data, level=level, shard_index=0,
+                                        shard_count=1)
+            t_want = time.perf_counter() - t0
+            assert mine == want, f"compress_my_shard level {level}: != " \
+                "pzstd_compress(shard 0 of 1)"
+            streams[level] = (data, mine)
+            print(f"compress_my_shard, level {level}, rank 0 of 1: "
+                  f"{len(data)} B -> {len(mine)} B, ratio "
+                  f"{len(data) / len(mine):.4f}, "
+                  f"{len(data) / t_mine / 1e6:.2f} MB/s ({t_mine:.3f} s; "
+                  f"pzstd_compress {t_want:.3f} s, the same bytes)",
+                  flush=True)
+        launches = dict(_kernels.LAUNCHES)
+        assert not any(launches.values()), f"host path launched {launches}"
+        data, stream = streams[19]
+        t0 = time.perf_counter()
+        assert multihost.decompress_stream(stream) == data, \
+            "decompress_stream does not invert the level-19 stream"
+        t = time.perf_counter() - t0
+        print(f"decompress_stream of the level-19 stream: == input, "
+              f"{len(data) / t / 1e6:.2f} MB/s ({t:.3f} s); launches "
+              f"{launches}", flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1529,6 +1657,9 @@ def main() -> int:
 
     # ---- 9. the sharded long-distance matcher and --long -------------------
     kernels += ldm_phase(dev)
+
+    # ---- 10. the multi-host pzstd (host codec) ----------------------------
+    pzstd_phase(corpus)
     print(card_line(), flush=True)       # again, beside the numbers below
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

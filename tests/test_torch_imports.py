@@ -31,8 +31,10 @@ def test_import_leaves_out_jax_and_zstd_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     for m in ("pipeline", "parallel.shard_compress", "parallel.zstdmt",
-              "parallel.ldm_sharded", "parallel.multihost", "ops.ldm",
-              "format.ldm", "format.opt", "format.frame"):
+              "parallel.ldm_sharded", "parallel.multihost", "parallel.pzstd",
+              "native", "ops.ldm", "format.ldm", "format.opt",
+              "format.frame", "format.lazy", "format.split", "format.block",
+              "format.codec"):
         assert f"zstd_tpu_torch.{m}" in modules
 
 
@@ -42,6 +44,27 @@ def test_sources_name_neither_jax_nor_zstd_tpu():
     assert len(sources) > 10
     for path in sources:
         assert not pattern.search(path.read_text()), path
+
+
+def test_host_c_is_whole_and_reads_no_environment():
+    """The host library builds every csrc/host/*.c, and no copied C reads
+    the environment (the reference's knobs are constants)."""
+    from zstd_tpu_torch import _kernels
+    host = sorted(p.name for p in (PORT / "csrc" / "host").glob("*.c"))
+    assert [s.split("/")[1] for s in _kernels.HOST_SOURCES] == host
+    for name in host:
+        text = (PORT / "csrc" / "host" / name).read_text()
+        assert "getenv" not in text, name
+
+
+def test_host_codec_imports_no_torch():
+    """pzstd's spawned workers import the host codec without torch."""
+    code = ("import sys, zstd_tpu_torch.parallel.pzstd\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_no_card_raises(monkeypatch):

@@ -10,7 +10,9 @@ of --long, on the CPU, against zstd_tpu.
   candidates and find_long_matches of every block; the cap drop; the
   reference's halo-wrap fault (ROADMAP §3), which the port does not share.
 - `compress_long_sharded` frames against zstd_tpu's (its C library loaded)
-  at levels 1 and -1, the same at world sizes 1 and 2.
+  at levels 1 and -1 on 4 MiB, and 3, 5, 9 and 19 on 512 KiB of the long
+  corpus (the chain-lazy gap parser, the DP and the seqstore splitting),
+  the same at world sizes 1 and 2; level 19 on the short inputs.
 - The host copies on that path (the C fast parser, the Huffman, literal,
   sequence, block and split encoders) against zstd_tpu's C branches.
 """
@@ -68,6 +70,11 @@ HALO = {f"rng{s}_{n}": np.random.default_rng(s).integers(
                      (4, 153_663))}
 LONG = long_corpus(4 * 1024 * 1024, seg=1024 * 1024)
 LEVELS = (1, -1)
+# levels 3-22: the inner parsers of strategies 2-9 (chain-lazy, the DP) and
+# the seqstore splitting of strategy 5 and up
+LONG_SMALL = long_corpus(512 * 1024, seg=128 * 1024)
+SMALL_LEVELS = (3, 5, 9, 19)
+SHORT = {"empty": b"", "tiny": b"abc" * 30}
 LDM_JOBS = {"mixed": (MIXED, 21), "periodic": (PERIODIC, 20),
             **{k: (v, 21) for k, v in HALO.items()}}
 
@@ -82,16 +89,22 @@ def port(tmp_path_factory):
     inputs' frames on worlds 1-3 (one spawned group per world size)."""
     jobs = [(name, "ldm", dict(data=d, window_log=w))
             for name, (d, w) in LDM_JOBS.items()]
-    jobs += [("empty", "long", dict(data=b"", checksum=True)),
-             ("tiny", "long", dict(data=b"abc" * 30, checksum=True))]
+    jobs += [(name, "long", dict(data=d, checksum=True))
+             for name, d in SHORT.items()]
+    jobs += [(f"{name}19", "long", dict(data=d, level=19, checksum=True))
+             for name, d in SHORT.items()]
     return run_groups(WORLDS, str(tmp_path_factory.mktemp("ldm")), jobs)
 
 
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
-    """{world: {f"long{level}": frame}} of LONG on worlds 1 and 2."""
+    """{world: {f"long{level}": frame}} of LONG and of LONG_SMALL on worlds
+    1 and 2."""
     jobs = [(f"long{lv}", "long", dict(data=LONG, level=lv, long_log=24))
             for lv in LEVELS]
+    jobs += [(f"small{lv}", "long", dict(data=LONG_SMALL, level=lv,
+                                          long_log=20))
+             for lv in SMALL_LEVELS]
     return run_groups(FRAME_WORLDS, str(tmp_path_factory.mktemp("long")),
                       jobs)
 
@@ -327,13 +340,31 @@ def test_frames_same_at_every_world(frames, level):
     assert len({frames[w][f"long{level}"] for w in FRAME_WORLDS}) == 1
 
 
+_JSMALL = {}
+
+
+@pytest.mark.parametrize("world", FRAME_WORLDS)
+@pytest.mark.parametrize("level", SMALL_LEVELS)
+def test_frames_at_levels_3_to_22_equal_jax(frames, level, world):
+    """The gaps between long matches parsed by the level's own inner parser
+    (chain-lazy at strategies 2-5, the DP above), cut by the seqstore
+    splitter from strategy 5, and the same frame at every world size."""
+    if level not in _JSMALL:
+        _JSMALL[level] = jl.compress_long_sharded(
+            LONG_SMALL, level=level, long_log=20, mesh=make_mesh(1))
+    got = frames[world][f"small{level}"]
+    assert got == _JSMALL[level]
+    assert zstd_tpu.decompress(got) == LONG_SMALL
+    assert len(got) < len(LONG_SMALL) // 8
+
+
 @pytest.mark.parametrize("name", ["empty", "tiny"])
 def test_short_inputs_pin_reference_fault(port, name):
     """Below 320 bytes one shard's S·cap = 8 entries are fewer than the
     12-deep look-back, and JAX's `_discover` fails on a mesh of 1 (its
     shifted copies grow past the row; ROADMAP §3). On a mesh of 2 it runs;
     the port's frames equal that one at every world size and decode."""
-    data = b"" if name == "empty" else b"abc" * 30
+    data = SHORT[name]
     with pytest.raises(TypeError):
         jl.compress_long_sharded(data, checksum=True, mesh=make_mesh(1))
     want = jl.compress_long_sharded(data, checksum=True, mesh=make_mesh(2))
@@ -341,6 +372,21 @@ def test_short_inputs_pin_reference_fault(port, name):
         assert port[w][name] == want
     assert zstd_tpu.decompress(want) == data
     assert tl.compress_long_sharded(data, checksum=True, device="cpu") == want
+
+
+@pytest.mark.parametrize("name", sorted(SHORT))
+def test_short_inputs_at_level_19(port, name):
+    """The same inputs through the keep-min level's host path (the mesh-1
+    fault stays pinned above): equal to JAX's mesh-2 frame at every world
+    size."""
+    data = SHORT[name]
+    want = jl.compress_long_sharded(data, level=19, checksum=True,
+                                    mesh=make_mesh(2))
+    for w in WORLDS:
+        assert port[w][f"{name}19"] == want
+    assert zstd_tpu.decompress(want) == data
+    assert tl.compress_long_sharded(data, level=19, checksum=True,
+                                    device="cpu") == want
 
 
 def test_world_of_one_on_the_cpu():
@@ -357,21 +403,6 @@ def test_no_card_raises(monkeypatch):
         tl.compress_long_sharded(b"x" * 1000)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tl.ShardedLdmState(np.zeros(1000, np.uint8), 20)
-
-
-def test_other_strategies_raise():
-    cp = tparams.get_cparams(5, 1 << 20)
-    with pytest.raises(ValueError, match="strategy"):
-        tframe.compress_frame(b"x" * 1000, cp,
-                              ldm_state=tldm.LdmState(np.zeros(1000,
-                                                               np.uint8), 20))
-    with pytest.raises(ValueError, match="ldm_state"):
-        tframe.compress_frame(b"x" * 1000, tparams.get_cparams(1, 1000))
-    cp3 = tparams.get_cparams(3, 1 << 20)
-    full = _u8(gen_text(10_000, seed=1))
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
-        tldm.find_sequences_ldm(full, 0, len(full), 0, (1, 4, 8), cp3,
-                                tldm.LdmState(full, 20))
 
 
 # ---- host copies on the path --------------------------------------------------
@@ -506,7 +537,7 @@ def test_write_sequences_section_equals_c(level):
         reps = nreps
 
 
-@pytest.mark.parametrize("level", LEVELS)
+@pytest.mark.parametrize("level", LEVELS + (3, 9))
 def test_compress_block_equals_c(level):
     full, cj, ct, jst, tst = _ldm_blocks(level)
     js, ts = jblock.BlockCState(), tblock.BlockCState()

@@ -45,6 +45,10 @@ def _rank_main(rank: int, world: int, store: str, jobs: list,
                 if any(f.tobytes() != frame for f in every):
                     raise AssertionError(f"{name}: the ranks' frames differ")
                 results[name] = frame
+            elif kind == "shard":
+                # index and count from the initialised default group
+                mine = multihost.compress_my_shard(**kwargs)
+                results[name] = multihost.gather_and_concat(mine, grp)
             elif kind == "gather":
                 if multihost.init_distributed() != (rank, world):
                     raise AssertionError(f"{name}: init_distributed")
@@ -84,7 +88,9 @@ def run_groups(worlds, workdir: str, jobs: list) -> dict:
     0's), each with its keyword arguments, `group` left out; "ldm"
     (`_ldm_job`); "gather" (multihost.gather_and_concat of
     kwargs["shards"][rank]; rank 0 must get the list, the others None, and
-    init_distributed() must return (rank, world)).
+    init_distributed() must return (rank, world)); "shard"
+    (multihost.compress_my_shard with the group's rank and world; rank
+    0's result is every rank's shard in rank order).
     Returns {world: {name: rank 0's result}}. Raises if a rank fails or the
     groups outlive JOIN_TIMEOUT."""
     os.makedirs(workdir, exist_ok=True)

@@ -3,9 +3,11 @@ csrc/host/.
 
 Each csrc/*.cu is compiled on first use by its own nvcc process (all started
 together) into a shared library with a plain C interface under _build/, and
-loaded with ctypes; each csrc/host/*.c likewise with the host C compiler
-(`cc`). A library is rebuilt when its source changes (the source's
-hash is part of the file name). Nothing here runs at import time, so the
+loaded with ctypes. All of csrc/host/*.c is one host library, built by one
+process of the host C compiler (`cc`), as native/Makefile links native/*.c
+into one library: cblock.c calls the parsers and entropy coders of the
+other files. A library is rebuilt when a source changes (the sources' hash
+is part of the file name). Nothing here runs at import time, so the
 package imports on machines without nvcc or a GPU. A missing compiler or a
 failed build raises: nothing falls back.
 """
@@ -25,12 +27,16 @@ _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu",
            "lazy_resolve.cu", "xla_walk.cu", "ldm_fingerprint.cu",
            "ldm_lookback.cu")
-HOST_SOURCES = ("host/fast.c",)
+HOST_SOURCES = ("host/cblock.c", "host/encode.c", "host/fast.c",
+                "host/huf.c", "host/lazy.c", "host/opt.c", "host/row.c")
+HOST_LIB = "host"
 
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-CC_FLAGS = ["-O2", "-shared", "-fPIC"]
+# native/Makefile's flags without -march=native: the host C is integer-only,
+# and a library built for this host's ISA could fault on another
+CC_FLAGS = ["-O3", "-std=gnu11", "-shared", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -67,12 +73,37 @@ _SIGNATURES = {
                                                 _P]},
 }
 # host C entry points: name -> (restype, argtypes)
+_I64 = ctypes.c_int64
 _HOST_SIGNATURES = {
-    "host/fast.c": {
-        "zt_fast_fill": (None, [_P, _L, _L, _I, _I, _P]),
-        "zt_fast_parse": (ctypes.c_int64, [_P, _L, _L, _L, _P, _P, _P, _P,
-                                           _L, _I, _I, _I, _I, _P]),
-    },
+    "zt_fast_fill": (None, [_P, _L, _L, _I, _I, _P]),
+    "zt_fast_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
+                             _I, _I, _I, _I, _P]),
+    "zt_dfast_fill": (None, [_P, _L, _L, _I, _I, _P, _P]),
+    "zt_dfast_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
+                              _I, _I, _I, _P, _P]),
+    "zt_lazy_fill": (None, [_P, _L, _L, _I, _I, _I, _P, _P]),
+    "zt_lazy_fill_long": (None, [_P, _L, _L, _I, _P]),
+    "zt_lazy_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
+                             _I, _I, _I, _I, _I, _I, _P, _P, _P, _I]),
+    "zt_row_fill": (None, [_P, _L, _L, _I, _I, _I, _P, _P, _P, _P, _I]),
+    "zt_row_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
+                            _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I]),
+    "zt_opt_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
+                            _I, _I, _I, _I, _I]),
+    "zt_opt_parse_ctx": (_I64, [_P, _P, _L, _L, _L, _L, _P, _P, _P, _P, _L,
+                                _I, _I, _I, _I, _I]),
+    "zt_opt_ctx_new": (_P, []),
+    "zt_opt_ctx_free": (None, [_P]),
+    "zt_opt_ctx_clone": (_I, [_P, _P, _L]),
+    "zt_opt_ctx_copy_prices": (None, [_P, _P]),
+    "zt_opt_knob_twopass": (None, [_I]),
+    "zt_compress_fast_frame": (_I64, [_P, _L, _L, _L, _L, _I, _I, _I, _I,
+                                      _I, _P, _P, _P, _L]),
+    "zt_compress_dp_frame": (_I64, [_P, _L, _L, _L, _L, _I, _P,
+                                    _I, _I, _I, _I, _P, _L]),
+    "zt_compress_row_frame": (_I64, [_P, _L, _L, _L, _L, _I, _P,
+                                     _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
+                                     _P, _L]),
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its
@@ -105,25 +136,31 @@ def _cc() -> str:
 
 
 def _lib_path(src: str) -> str:
-    with open(os.path.join(_CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    """The library of one CUDA source, or of HOST_LIB (all HOST_SOURCES)."""
+    digest = hashlib.sha256()
+    for part in (HOST_SOURCES if src == HOST_LIB else (src,)):
+        with open(os.path.join(_CSRC, part), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(src)[0].replace("/", "-")
-    return os.path.join(_BUILD, f"{stem}-{digest}.so")
+    return os.path.join(_BUILD, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def _build(sources, compiler, flags, what: str) -> float:
-    """Compile every source that has no up-to-date library, one compiler
-    process per source, all in parallel. Returns the wall time spent."""
+def _build(libs, compiler, flags, what: str) -> float:
+    """Compile every library (a CUDA source, or HOST_LIB) that is not up to
+    date, one compiler process per library, all in parallel. Returns the
+    wall time spent."""
     t0 = time.time()
     with _lock:
         os.makedirs(_BUILD, exist_ok=True)
         procs = []
-        for src in sources:
+        for src in libs:
             out = _lib_path(src)
             if os.path.exists(out):
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [compiler(), *flags, "-o", tmp, os.path.join(_CSRC, src)]
+            parts = HOST_SOURCES if src == HOST_LIB else (src,)
+            cmd = [compiler(), *flags, "-o", tmp,
+                   *(os.path.join(_CSRC, p) for p in parts)]
             procs.append((src, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failed = []
@@ -146,24 +183,34 @@ def build_all() -> float:
 
 
 def build_host() -> float:
-    """Compile the host C sources with cc, as build_all does the CUDA ones."""
-    return _build(HOST_SOURCES, _cc, CC_FLAGS, "cc")
+    """Compile the host library (all HOST_SOURCES, one cc process) if it is
+    not up to date. Returns the wall time spent (seconds)."""
+    return _build((HOST_LIB,), _cc, CC_FLAGS, "cc")
 
 
 def get(src: str) -> ctypes.CDLL:
-    """The loaded library of one csrc/ source (a .cu, or host/*.c), built
-    on first use."""
+    """The loaded library of one CUDA source in csrc/, built on first use."""
     lib = _libs.get(src)
     if lib is not None:
         return lib
-    host = src in _HOST_SIGNATURES
-    (build_host if host else build_all)()
+    build_all()
+    return _load(src, {name: (ctypes.c_int, argtypes)
+                       for name, argtypes in _SIGNATURES[src].items()})
+
+
+def host() -> ctypes.CDLL:
+    """The loaded host library (csrc/host/*.c), built on first use."""
+    lib = _libs.get(HOST_LIB)
+    if lib is not None:
+        return lib
+    build_host()
+    return _load(HOST_LIB, _HOST_SIGNATURES)
+
+
+def _load(src: str, sigs: dict) -> ctypes.CDLL:
     with _lock:
         if src not in _libs:
             lib = ctypes.CDLL(_lib_path(src))
-            sigs = _HOST_SIGNATURES[src] if host else {
-                name: (ctypes.c_int, argtypes)
-                for name, argtypes in _SIGNATURES[src].items()}
             for name, (restype, argtypes) in sigs.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -1,16 +1,16 @@
-/* Fast-class greedy matchfinder (levels 1-2 and --fast), host C.
+/* Fast-class greedy matchfinder (levels 1-2 and --fast).
  *
- * Copy of zt_fast_fill and zt_fast_parse with their helpers from
- * native/fast.c (the double-fast functions are left out): the level-1 gap
- * parser of the long-distance path (format/ldm.py -> format/opt.py
- * find_sequences_fast). Role of ZSTD_compressBlock_fast (zstd's
- * lib/compress/zstd_fast.c:192): single hash table, greedy commit,
- * repcode-0 probe one byte ahead, backward extension into the literal run,
- * and miss-driven step acceleration; sequence contract ll/ob/mb arrays,
- * off_base = spec Offset_Value, a table of absolute positions.
+ * Role of ZSTD_compressBlock_fast (zstd's lib/compress/
+ * zstd_fast.c:192): single hash table, greedy commit, repcode-0 probe one
+ * byte ahead, backward extension into the literal run, and miss-driven
+ * step acceleration. Written fresh for the zstd_tpu sequence contract
+ * (ll/ob/mb arrays, off_base = spec Offset_Value, persistent table of
+ * absolute positions shared across a frame's blocks).
  *
- * Built with the host C compiler at first use (_kernels.build_host) and
- * loaded with ctypes; it runs on the host, not on the card.
+ * Copy of native/fast.c, the double-fast half included.
+ * Every C file of csrc/host is built into one shared library with the host C
+ * compiler at first use (zstd_tpu_torch/_kernels.py, host()) and loaded
+ * with ctypes; it runs on the host, not on the card.
  */
 
 #include <stdint.h>
@@ -57,6 +57,22 @@ void zt_fast_fill(const uint8_t* base, int64_t start, int64_t end,
         uint32_t h = hash_mls(base + j, mls, hash_log);
         table[2 * h + 1] = table[2 * h];
         table[2 * h] = (int32_t)j;
+    }
+}
+
+/* Same for the double-fast long (8-byte) + short (5-byte) tables
+ * (ZSTD_fillDoubleHashTable role, zstd_double_fast.c:13-75). */
+void zt_dfast_fill(const uint8_t* base, int64_t start, int64_t end,
+                   int hlog_long, int hlog_short,
+                   int32_t* table_long, int32_t* table_short)
+{
+    for (int64_t j = start; j + 8 <= end; j++) {
+        uint32_t hl = hash_mls(base + j, 8, hlog_long);
+        uint32_t hs = hash_mls(base + j, 5, hlog_short);
+        table_long[2 * hl + 1] = table_long[2 * hl];
+        table_long[2 * hl] = (int32_t)j;
+        table_short[2 * hs + 1] = table_short[2 * hs];
+        table_short[2 * hs] = (int32_t)j;
     }
 }
 
@@ -232,6 +248,187 @@ int64_t zt_fast_parse(const uint8_t* base, int64_t window_low,
             table[2 * hr] = (int32_t)ip;
             ip += l;
             anchor = ip;
+        }
+    }
+    reps[0] = (uint32_t)rep0;
+    reps[1] = (uint32_t)rep1;
+    reps[2] = (uint32_t)rep2;
+    return k;
+}
+
+/* Double-fast greedy (levels 3-4; zstd_double_fast.c role): a long-hash
+ * (8-byte) table finds far/long matches cheaply, a short-hash (5-byte)
+ * table catches the rest; a short hit defers to a longer long-table hit
+ * one position ahead (the reference's "search long at ip+1" tactic).
+ * Both tables are 2-way buckets persistent across a frame's blocks.
+ */
+
+static inline void tab_push(int32_t* t, uint32_t h, int64_t pos) {
+    t[2 * h + 1] = t[2 * h];
+    t[2 * h] = (int32_t)pos;
+}
+
+static inline int64_t probe_long(const uint8_t* base, const int32_t* tl,
+                                 uint32_t h, int64_t ip, int64_t window_low,
+                                 int64_t block_end, int64_t* src) {
+    int64_t best = 0;
+    uint64_t cur8 = rd64(base + ip);
+    for (int w = 0; w < 2; w++) {
+        int64_t cand = tl[2 * h + w];
+        if (cand >= window_low && cand >= 0 && cand < ip
+            && rd64(base + cand) == cur8) {
+            int64_t l = 8 + ext_fwd(base + ip + 8, base + cand + 8,
+                                    base + block_end);
+            if (l > best) { best = l; *src = cand; }
+        }
+    }
+    return best;
+}
+
+int64_t zt_dfast_parse(const uint8_t* base, int64_t window_low,
+                       int64_t block_start, int64_t block_end,
+                       uint32_t* reps,
+                       int32_t* ll_out, int32_t* ob_out, int32_t* mb_out,
+                       int64_t seq_cap,
+                       int hlog_long, int hlog_short, int accel_log,
+                       int32_t* table_long, int32_t* table_short)
+{
+    int64_t n = block_end - block_start;
+    if (n < 16) return 0;
+    if (accel_log < 4) accel_log = 4;
+
+    int64_t ip = block_start;
+    int64_t anchor = ip;
+    int64_t rep0 = reps[0], rep1 = reps[1], rep2 = reps[2];
+    int64_t k = 0;
+
+    while (ip < block_end - 16 && k < seq_cap) {
+        uint32_t hl = hash_mls(base + ip, 8, hlog_long);
+        uint32_t hs = hash_mls(base + ip, 5, hlog_short);
+        int64_t lsrc = -1, ssrc = -1;
+        int64_t lml = probe_long(base, table_long, hl, ip, window_low,
+                                 block_end, &lsrc);
+        tab_push(table_long, hl, ip);
+
+        /* repcode probes (same shape as the fast class) */
+        int64_t rstart = -1, rml = 0, rcode = 0;
+        if (rep0 > 0) {
+            if (ip > anchor && ip - rep0 >= window_low
+                && rd32(base + ip) == rd32(base + ip - rep0)) {
+                rstart = ip; rcode = 1;
+                rml = 4 + ext_fwd(base + ip + 4, base + ip - rep0 + 4,
+                                  base + block_end);
+            } else if (ip + 1 - rep0 >= window_low && ip + 1 < block_end - 16
+                       && rd32(base + ip + 1) == rd32(base + ip + 1 - rep0)) {
+                rstart = ip + 1; rcode = 1;
+                rml = 4 + ext_fwd(base + ip + 5, base + ip + 1 - rep0 + 4,
+                                  base + block_end);
+            }
+        }
+        if (rep1 > 0 && rml == 0 && ip > anchor && ip - rep1 >= window_low
+            && rd32(base + ip) == rd32(base + ip - rep1)) {
+            rstart = ip; rcode = 2;
+            rml = 4 + ext_fwd(base + ip + 4, base + ip - rep1 + 4,
+                              base + block_end);
+        }
+
+        int64_t sml = 0;
+        {
+            uint32_t cur4 = rd32(base + ip);
+            for (int w = 0; w < 2; w++) {
+                int64_t cand = table_short[2 * hs + w];
+                if (cand >= window_low && cand >= 0 && cand < ip
+                    && rd32(base + cand) == cur4) {
+                    int64_t l = 4 + ext_fwd(base + ip + 4, base + cand + 4,
+                                            base + block_end);
+                    if (l > sml) { sml = l; ssrc = cand; }
+                }
+            }
+        }
+        tab_push(table_short, hs, ip);
+
+        int64_t mstart, msrc, ml;
+        int is_rep = 0;
+        /* longer wins; the long table wins ties (usually farther back but
+           found through an 8-byte anchor, so its tail extends further) */
+        int64_t tml = lml >= sml ? lml : sml;
+        int64_t tsrc = lml >= sml ? lsrc : ssrc;
+        if (lml == 0) { tml = sml; tsrc = ssrc; }
+        int take_rep = 0;
+        if (rml > 0) {
+            if (tsrc < 0) take_rep = 1;
+            else {
+                /* price-aware: a new offset must pay its ~highbit(off)
+                   extra header bits with ~3 bits/byte of extra length */
+                int hb = 63 - __builtin_clzll((uint64_t)(ip - tsrc) | 1);
+                take_rep = (3 * (tml - rml) <= hb + 1);
+            }
+        }
+        if (take_rep) {
+            mstart = rstart;
+            msrc = rstart - (rcode == 1 ? rep0 : rep1);
+            ml = rml;
+            is_rep = (int)rcode;
+        } else if (tml > 0) {
+            /* defer to a longer match one position ahead (either table) */
+            if (ip + 1 < block_end - 16) {
+                uint32_t hn = hash_mls(base + ip + 1, 8, hlog_long);
+                int64_t nsrc = -1;
+                int64_t nml = probe_long(base, table_long, hn, ip + 1,
+                                         window_low, block_end, &nsrc);
+                if (nml <= tml + 1) {
+                    uint32_t hsn = hash_mls(base + ip + 1, 5, hlog_short);
+                    uint32_t nxt4 = rd32(base + ip + 1);
+                    for (int w = 0; w < 2; w++) {
+                        int64_t cand = table_short[2 * hsn + w];
+                        if (cand >= window_low && cand >= 0 && cand <= ip
+                            && rd32(base + cand) == nxt4) {
+                            int64_t l = 4 + ext_fwd(base + ip + 5,
+                                                    base + cand + 4,
+                                                    base + block_end);
+                            if (l > nml) nml = l;
+                        }
+                    }
+                }
+                if (nml > tml + 1) { ip += 1; continue; }
+            }
+            mstart = ip; msrc = tsrc; ml = tml;
+            while (mstart > anchor && msrc > window_low
+                   && base[mstart - 1] == base[msrc - 1]) {
+                mstart--; msrc--; ml++;
+            }
+        } else {
+            ip += 1 + ((ip - anchor) >> accel_log);
+            continue;
+        }
+
+        int64_t off = mstart - msrc;
+        ll_out[k] = (int32_t)(mstart - anchor);
+        mb_out[k] = (int32_t)(ml - 3);
+        if (is_rep == 1) {
+            ob_out[k] = 1;
+        } else if (is_rep == 2) {
+            ob_out[k] = 2;
+            int64_t t = rep0; rep0 = rep1; rep1 = t;
+        } else {
+            ob_out[k] = (int32_t)(off + 3);
+            rep2 = rep1; rep1 = rep0; rep0 = off;
+        }
+        k++;
+        ip = mstart + ml;
+        anchor = ip;
+        if (ip < block_end - 16) {
+            int64_t stop = ip - 2;
+            int ins = 0;
+            for (int64_t j = mstart + 1; j <= stop && ins < 16; j += 2, ins++) {
+                tab_push(table_long, hash_mls(base + j, 8, hlog_long), j);
+                tab_push(table_short, hash_mls(base + j, 5, hlog_short), j);
+            }
+            if (stop > mstart) {
+                tab_push(table_long, hash_mls(base + stop, 8, hlog_long), stop);
+                tab_push(table_short, hash_mls(base + stop, 5, hlog_short),
+                         stop);
+            }
         }
     }
     reps[0] = (uint32_t)rep0;

@@ -1,12 +1,16 @@
-"""Frame headers, the host frame encoder of the long-distance path, the
-host frame decoder and skippable frames.
+"""Frame headers, the host frame encoder, the host frame decoder and
+skippable frames.
 
 Copy of write_frame_header, FrameHeader, parse_frame_header, is_skippable,
-the Python branches of _split_points and decompress_frame, and of
-compress_frame's per-block loop in zstd_tpu/format/frame.py (zstd's
+_split_points, _finish_c_frame, compress_frame and the Python branch of
+decompress_frame in zstd_tpu/format/frame.py (zstd's
 lib/compress/zstd_compress.c ZSTD_writeFrameHeader:4626 and
 ZSTD_compress_frameChunk:4527, lib/decompress/zstd_decompress.c
-ZSTD_getFrameHeader_advanced:447 and ZSTD_decompressFrame:951).
+ZSTD_getFrameHeader_advanced:447 and ZSTD_decompressFrame:951), without a
+window prefix (--patch-from), a target block size or an external sequence
+producer. compress_frame runs the whole-frame C paths of csrc/host/cblock.c
+where zstd_tpu does (ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER at their
+defaults), else the per-block loop.
 """
 
 from __future__ import annotations
@@ -15,13 +19,17 @@ import dataclasses
 
 import numpy as np
 
+from .. import native
 from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_RAW,
                          BT_RESERVED, BT_RLE, SKIPPABLE_MAGIC_MAX,
                          SKIPPABLE_MAGIC_MIN, WINDOWLOG_LIMIT_DEFAULT,
                          ZSTD_MAGIC)
 from ..errors import Corruption, ZstdError, ZstdErrorCode
 from ..xxhash64 import content_checksum
-from .block import BlockCState, BlockDState, compress_block, decompress_block
+from .block import (BlockCState, BlockDState, compress_block,
+                    compress_block_pieces, decompress_block)
+from .ldm import LdmState
+from .opt import row_params
 
 
 @dataclasses.dataclass
@@ -83,13 +91,14 @@ def write_frame_header(src_size: int, window_log: int, checksum: bool,
     return bytes(out)
 
 
-def _split_points(full: np.ndarray, bs: int, be: int) -> list[int]:
+def _split_points(full: np.ndarray, bs: int, be: int,
+                  threshold: float = 0.35) -> list[int]:
     """Entropy-divergence pre-split inside one block (ZSTD_splitBlock /
     zstd_preSplit.c fingerprint-divergence analog, vectorized): compare each
     4 KiB chunk's coarse byte histogram against the running segment
-    histogram and cut where the L1 divergence passes 0.35, no segment
-    under 16 KiB. Returns interior split offsets."""
-    chunk, min_seg, threshold = 4096, 16384, 0.35
+    histogram and cut where the L1 divergence passes `threshold`, no
+    segment under 16 KiB. Returns interior split offsets."""
+    chunk, min_seg = 4096, 16384
     n = be - bs
     if n < 2 * min_seg:
         return []
@@ -118,19 +127,85 @@ def _split_points(full: np.ndarray, bs: int, be: int) -> list[int]:
     return splits
 
 
+def _finish_c_frame(out: bytearray, blocks: bytes, checksum: bool,
+                    data: bytes) -> bytes:
+    """Shared tail of the whole-frame C paths: append blocks + checksum."""
+    out += blocks
+    if checksum:
+        out += content_checksum(data).to_bytes(4, "little")
+    return bytes(out)
+
+
+def _c_frame(data: bytes, cparams) -> bytes | None:
+    """The blocks of a whole-frame C path (csrc/host/cblock.c: parse,
+    entropy and block emit of every block in one call, the shape of
+    ZSTD_compress_frameChunk), or None where zstd_tpu takes none or the C
+    declines."""
+    n = len(data)
+    full = np.frombuffer(data, dtype=np.uint8)
+    window_size = 1 << cparams.window_log
+    block_size = min(window_size, BLOCK_MAX_SIZE)
+    strategy, search_log = cparams.strategy, cparams.search_log
+    if strategy == 1:
+        # fast path (levels 1-2 and --fast)
+        step0 = max(1, -cparams.target_length
+                    if cparams.target_length < 0
+                    else cparams.target_length
+                    if cparams.target_length > 0 else 1)
+        table = np.full(2 << cparams.hash_log, -1, dtype=np.int32)
+        return native.compress_fast_frame(
+            full, 0, n, window_size, block_size, cparams.hash_log, 8,
+            min(max(cparams.min_match, 4), 8), step0, strategy, table)
+    blocks = None
+    if strategy in (2, 3, 4, 5) and search_log <= 4:
+        # row path (levels 3-9). Strategies 3-4 skip the Python route's
+        # seqstore splitting; strategy 5 carries the in-C over-matching
+        # detector, which aborts the C frame (None) on a word-salad-shaped
+        # parse and reroutes it through the per-block loop
+        row_log, width_log, mls, attempts, defer, hlog_long = \
+            row_params(cparams)
+        blocks = native.compress_row_frame(
+            full, 0, n, window_size, block_size, strategy, row_log,
+            width_log, mls, attempts, defer,
+            np.full(1 << (row_log + width_log), -1, dtype=np.int32),
+            np.zeros(1 << (row_log + width_log), dtype=np.uint8),
+            np.zeros(1 << row_log, dtype=np.uint8),
+            np.full(2 << hlog_long, -1, dtype=np.int32), hlog_long)
+    if blocks is None and strategy in (5, 6, 7) and search_log >= 5:
+        # shallow-DP path (levels 10-15 class; the keep-min levels stay on
+        # the exact per-block sizing), with find_sequences_shallow_dp's /
+        # find_sequences_opt's ladder floors
+        if strategy == 5:
+            dp_sl = min(max(search_log - 1, 3), 5)
+            dp_hl = cparams.hash_log
+            dp_tl = 32
+        elif n >= (1 << 21):
+            dp_sl = max(search_log, 5)
+            dp_hl = max(cparams.hash_log, min(22, cparams.hash_log + 3))
+            dp_tl = cparams.target_length
+        elif n <= 262144:
+            dp_sl = max(search_log, 11)
+            dp_hl = cparams.hash_log
+            dp_tl = max(cparams.target_length, 999)
+        else:
+            dp_sl = max(search_log, 8 if strategy >= 6 else 5)
+            dp_hl = cparams.hash_log
+            dp_tl = max(cparams.target_length, 256)
+        blocks = native.compress_dp_frame(
+            full, 0, n, window_size, block_size,
+            8 if strategy == 5 else strategy, dp_hl, dp_sl,
+            min(max(cparams.min_match, 4), 6), dp_tl)
+    return blocks
+
+
 def compress_frame(data: bytes, cparams, checksum: bool = False,
-                   ldm_state=None) -> bytes:
-    """One full zstd frame through the long-distance matcher `ldm_state` (a
-    parallel/ldm_sharded.ShardedLdmState or a format/ldm.LdmState): the
-    per-block loop of zstd_tpu's compress_frame (ZSTD_compressContinue_internal
-    driver shape) with its content-divergence pre-split, for no prefix and no
-    target block size. Strategies 5 and up (seqstore splitting) raise."""
-    if ldm_state is None:
-        raise ValueError("the port's host frame encoder is the long-distance "
-                         "path's: pass an ldm_state")
-    if cparams.strategy >= 5:
-        raise ValueError(f"strategy {cparams.strategy}: the port's host frame "
-                         f"encoder has no seqstore splitting (strategy < 5)")
+                   long_mode: bool = False, ldm_state=None) -> bytes:
+    """One full zstd frame (the shape of ZSTD_compressContinue_internal).
+
+    long_mode: long-distance matching through the host LdmState.
+    ldm_state: a pre-built long-distance matcher state (the sharded
+    parallel/ldm_sharded.ShardedLdmState) instead of the host LdmState;
+    implies long matching."""
     n = len(data)
     window_log = cparams.window_log
     out = bytearray(write_frame_header(n, window_log, checksum))
@@ -141,32 +216,56 @@ def compress_frame(data: bytes, cparams, checksum: bool = False,
             out += content_checksum(b"").to_bytes(4, "little")
         return bytes(out)
 
+    if not long_mode and ldm_state is None and n >= 128:
+        blocks = _c_frame(data, cparams)
+        if blocks is not None:
+            return _finish_c_frame(out, blocks, checksum, data)
+
     full = np.frombuffer(data, dtype=np.uint8)
     window_size = 1 << window_log
     block_size = min(window_size, BLOCK_MAX_SIZE)
     state = BlockCState()
+    ldm_ctx = ldm_state
+    if long_mode and ldm_ctx is None:
+        ldm_ctx = LdmState(full, window_log)
+    # cost-driven seqstore splitting at the slow-strategy levels
+    # (ZSTD_deriveBlockSplits analog, format/split.py); the cheap
+    # histogram-divergence pre-split (_split_points, zstd_preSplit.c analog)
+    # applies at every level
+    split_full = cparams.strategy >= 5
     pos = 0
     while pos < n:
         end = min(pos + block_size, n)
         if end - pos >= 32768:
-            # content-divergence pre-split (zstd_preSplit.c analog): phase-
-            # shifts the block grid onto content transitions
-            pts = _split_points(full, pos, end)
+            # content-divergence pre-split: phase-shifts the block grid onto
+            # content transitions. Slow levels demand a stronger divergence:
+            # their seqstore splitter already handles mild mixtures exactly
+            pts = _split_points(full, pos, end,
+                                threshold=0.45 if split_full else 0.35)
             if pts:
                 end = pts[0]
-        last = end == n
-        # window floor from the region END, not its start (the reference's
-        # ZSTD_window_enforceMaxDist role; zstd_tpu cuts regions into pieces
-        # at other levels, and keeps this floor for every level)
+        last_region = end == n
+        # window floor from the region END, not its start: regions may be
+        # re-cut into several emitted blocks (compress_block_pieces), and
+        # the decoder enforces out_len - window at each EMITTED block's
+        # start; anchoring at `end` makes every piece cut window-safe (the
+        # reference's ZSTD_window_enforceMaxDist role)
         window_low = max(0, end - window_size)
-        payload, btype, state = compress_block(
-            full, pos, end, window_low, state, cparams, ldm_state)
-        if btype == BT_RLE:
-            bh = int(last) | (BT_RLE << 1) | ((end - pos) << 3)
+        if split_full:
+            pieces, state = compress_block_pieces(
+                full, pos, end, window_low, state, cparams, ldm_ctx=ldm_ctx)
         else:
-            bh = int(last) | (btype << 1) | (len(payload) << 3)
-        out += bh.to_bytes(3, "little")
-        out += payload
+            payload, btype, state = compress_block(
+                full, pos, end, window_low, state, cparams, ldm_ctx=ldm_ctx)
+            pieces = [(payload, btype, end - pos)]
+        for pi, (payload, btype, clen) in enumerate(pieces):
+            last = last_region and pi == len(pieces) - 1
+            if btype == BT_RLE:
+                bh = int(last) | (BT_RLE << 1) | (clen << 3)
+            else:
+                bh = int(last) | (btype << 1) | (len(payload) << 3)
+            out += bh.to_bytes(3, "little")
+            out += payload
         pos = end
     if checksum:
         out += content_checksum(data).to_bytes(4, "little")

@@ -3,9 +3,10 @@ large window, wrapped around the inner match finder.
 
 Copy of zstd_tpu/format/ldm.py: LdmState (the host discovery, and the
 plain reference the sharded discovery of parallel/ldm_sharded.py is held
-to) and find_sequences_ldm with the inner strategy of levels 1-2 and --fast
-only. Same role as the reference LDM (zstd's lib/compress/zstd_ldm.c: gear
-rolling hash sampled every 2^hashRateLog bytes, bucketed candidate table,
+to) and find_sequences_ldm, whose inner parser is the level's own (fast,
+chain-lazy or the DP, format/opt.py). Same role as the reference LDM
+(zstd's lib/compress/zstd_ldm.c: gear rolling hash sampled every
+2^hashRateLog bytes, bucketed candidate table,
 ZSTD_ldm_blockCompress interleaving with the inner finder at
 lib/compress/zstd_compress.c:3263): the anchor predicate is a
 content-defined mask on a multiplicative 8-byte hash, anchors index a
@@ -20,6 +21,8 @@ import numpy as np
 from ..constants import MIN_MATCH
 from .lazy import _ext_fwd, _off_base
 from .matchfinder import update_reps
+from .opt import (find_sequences_chainlazy, find_sequences_fast,
+                  find_sequences_opt)
 from .sequences import SeqStore
 
 LDM_MIN_MATCH = 32          # minimum long-distance match length
@@ -128,15 +131,7 @@ def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
                        window_low: int, reps: tuple, cparams,
                        ldm: LdmState) -> tuple[SeqStore, tuple]:
     """LDM-wrapped sequence extraction: long matches partition the block;
-    the inner strategy compresses the gaps. The port has the inner parser
-    of strategy 1 only (the host C of the others is ROADMAP item 9)."""
-    if cparams.strategy != 1:
-        raise ValueError(
-            f"the long-distance path parses gaps at strategy 1 only, not "
-            f"{cparams.strategy}: the host C of the other strategies is "
-            f"ROADMAP item 9")
-    from .opt import find_sequences_fast
-
+    the inner strategy compresses the gaps."""
     ldm.insert_upto(block_start)
     longs = ldm.find_long_matches(block_start, block_end)
 
@@ -153,7 +148,18 @@ def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
             return SeqStore(np.zeros(0, np.int32), np.zeros(0, np.int32),
                             np.zeros(0, np.int32), b""), r
         wl = max(window_low, gs - inner_window)
-        return find_sequences_fast(full, gs, ge, wl, r, cparams)
+        # Same strategy dispatch as plain blocks (ZSTD_selectBlockCompressor
+        # role): LDM wraps the LEVEL's inner match finder
+        # (zstd_compress.c:3263-3292), each gap with fresh tables. The
+        # fast parse never declines: each sequence covers at least mls >= 5
+        # bytes, and it has room for n / 4 + 16
+        if cparams.strategy == 1:
+            return find_sequences_fast(full, gs, ge, wl, r, cparams)
+        if cparams.strategy in (2, 3, 4, 5):
+            res = find_sequences_chainlazy(full, gs, ge, wl, r, cparams)
+            if res is not None:
+                return res
+        return find_sequences_opt(full, gs, ge, wl, r, cparams)
 
     for (mpos, mlen, mdist) in longs:
         seqs, r = run_inner(gap_start, mpos, r)

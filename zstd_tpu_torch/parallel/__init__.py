@@ -19,14 +19,31 @@ asks for them:
   csrc/ldm_lookback.cu), and `compress_long_sharded`, the --long frame
   through it and the host frame encoder, the same on every rank;
 - `multihost`: `init_distributed` (torch.distributed from the standard
-  environment) and `gather_and_concat` (each process's shard on process 0).
+  environment), `gather_and_concat` (each process's shard on process 0),
+  and `compress_my_shard` / `decompress_stream`, this process's chunk range
+  as pzstd frames and their decode;
+- `pzstd`: `pzstd_compress` / `pzstd_decompress`, independent frames with
+  size hints over the host codec (format/codec.py), on a process or thread
+  pool.
 """
 
-from .ldm_sharded import ShardedLdmState, compress_long_sharded
-from .multihost import gather_and_concat, init_distributed
-from .shard_compress import ShardGroup, init_group, make_group
-from .zstdmt import compress_sharded
+import importlib
 
-__all__ = ["ShardGroup", "ShardedLdmState", "compress_long_sharded",
-           "compress_sharded", "gather_and_concat", "init_distributed",
-           "init_group", "make_group"]
+_ENTRY = {"ShardGroup": "shard_compress", "init_group": "shard_compress",
+          "make_group": "shard_compress", "compress_sharded": "zstdmt",
+          "ShardedLdmState": "ldm_sharded",
+          "compress_long_sharded": "ldm_sharded",
+          "compress_my_shard": "multihost", "decompress_stream": "multihost",
+          "gather_and_concat": "multihost", "init_distributed": "multihost",
+          "pzstd_compress": "pzstd", "pzstd_decompress": "pzstd"}
+
+__all__ = sorted(_ENTRY)
+
+
+def __getattr__(name: str):
+    # loaded on first use: pzstd's spawned workers import this package but
+    # need only the host codec, not torch
+    if name not in _ENTRY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_ENTRY[name]}", __name__),
+                   name)
