@@ -28,8 +28,11 @@ parallel.zstdmt.compress_sharded in an NCCL group of one rank against a
 gloo group on the CPU, its 16 MiB frame decoded on the card), drives the
 sharded long-distance matcher and compress_long_sharded at levels 1, 3
 and 19 (phase 9), and the multi-host pzstd, compress_my_shard and
-decompress_stream, on the host codec (phase 10), and prints one JSON line
-of kernel timings before its last line:
+decompress_stream, on the host codec (phase 10), holds the host C under the
+host halves (the decode's sequence parse, the block decoder, XXH64, the
+entropy planning and encoders) against their plain Python branches and
+times both (phase 11), and prints one JSON line of kernel timings before
+its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -39,6 +42,7 @@ prints no result. Any failed check raises, so the exit code is then non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -471,7 +475,7 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
           f"streams, {n_tabs} tables, {n_segs} segments, {host_bytes} host "
           f"literals, {nb_lit} pool bytes)", flush=True)
 
-    # ---- kernel 4 vs plain ---------------------------------------------------
+    # ---- kernel 4 vs plain --------------------------------------------------
     hist = torch.zeros(1, dtype=torch.uint8, device=dev)
     pool, _ = dd.literal_pool(*lane, *segs, g["nb_lit"], g["max_syms"],
                               g["n"])
@@ -615,7 +619,7 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
           "limit 2 gives exec-depth; 1 MiB checksum frame cuda == cpu",
           flush=True)
 
-    # ---- fixture frames of other encoders ------------------------------------
+    # ---- fixture frames of other encoders -----------------------------------
     fdir = os.path.join(root, "tests", "data", "torch_decode")
     with open(os.path.join(fdir, "manifest.json")) as f:
         manifest = json.load(f)
@@ -1378,15 +1382,15 @@ def ldm_phase(dev) -> list:
     ]
 
 
-def pzstd_phase(corpus: bytes) -> None:
+def pzstd_phase(corpus: bytes) -> dict:
     """Phase 10: the multi-host pzstd in an NCCL group of one rank.
     compress_my_shard takes its index and count from the group; at levels 1
     and 3 on the 16 MiB big_corpus (4 MiB chunks: spawned worker processes)
     and at level 19 on its 2 MiB prefix (one chunk), each equals
     pzstd_compress(..., shard_index=0, shard_count=1); MB/s of each.
-    decompress_stream inverts the level-19 stream (the host decoder's
-    Python branch). This path is host-only by design, as in zstd_tpu: no
-    kernel launches."""
+    decompress_stream inverts the level-19 stream (the block decoder of
+    csrc/host/decode.c on threads). This path is host-only by design, as in
+    zstd_tpu: no kernel launches. Returns each level's (input, stream)."""
     import torch.distributed as dist
     from zstd_tpu_torch import _kernels
     from zstd_tpu_torch.parallel import multihost, pzstd, shard_compress
@@ -1427,6 +1431,174 @@ def pzstd_phase(corpus: bytes) -> None:
               f"{launches}", flush=True)
     finally:
         dist.destroy_process_group()
+    return streams
+
+
+def host_c_phase(dev, corpus: bytes, frame: bytes, streams: dict) -> None:
+    """Phase 11: the host C under the host halves (csrc/host/decode.c,
+    xxh64.c, huf.c, encode.c) against their plain versions, the Python
+    branches (tests/hostplain.py), in this one call. The device decode's
+    host parse of the main path's 16 MiB level-1 frame, C against plain
+    (ms, every field equal) and the decode's wall with each; `_build_plans`
+    of the 16 MiB corpus's level-1 stats (ms, equal plans) and the level-1
+    and level-5 encode walls with each (equal frames); decompress_stream of
+    phase 10's level-1 (C only: the plain decoder takes minutes) and
+    level-19 streams (MB/s; C == plain == input); compress_long_sharded at
+    level 1 on 4 MiB of the long corpus with each, its host split (equal
+    frames). Host code: the card only runs the encodes and decodes around
+    it."""
+    import pickle
+
+    import numpy as np
+    import torch
+    from hostplain import plain_branches
+    from longcorpus import long_corpus
+    from zstd_tpu_torch import device_decoder, native, pipeline
+    from zstd_tpu_torch.format import block as tblock
+    from zstd_tpu_torch.format import ldm as tldm
+    from zstd_tpu_torch.parallel import ldm_sharded, multihost
+    from zstd_tpu_torch.params import get_cparams
+
+    def best(fn, reps: int = 2) -> tuple[float, object]:
+        out, t_best = None, float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            t_best = min(t_best, time.perf_counter() - t0)
+        return t_best, out
+
+    def fields(pf):
+        return pickle.dumps((pf.lanes, pf.lane_tab, pf.segs, pf.host_pool,
+                             pf.pool_len, [(a.tolist(), b.tolist())
+                                           for a, b in pf.tables],
+                             pf.ll.dtype.str, pf.ll.tolist(), pf.ml.tolist(),
+                             pf.off.tolist(), pf.n, pf.end_pos))
+
+    # ---- the decode's host parse and wall -----------------------------------
+    t_c, pf_c = best(lambda: device_decoder._parse_frame(frame, 0, 31))
+    t_p, pf_p = best(lambda: device_decoder._parse_frame_plain(frame, 0, 31),
+                     reps=1)
+    assert fields(pf_c) == fields(pf_p), "C parse != plain parse"
+    d_c, out = best(lambda: device_decoder.device_decompress(frame,
+                                                             device=dev))
+    assert out == corpus
+    with plain_branches():
+        d_p, out = best(lambda: device_decoder.device_decompress(
+            frame, device=dev), reps=1)
+    assert out == corpus
+    mib = len(corpus) >> 20
+    print(f"host C, decode of the {mib} MiB level-1 frame ({len(pf_c.ll)} "
+          f"sequences): host parse C {t_c * 1e3:.1f} ms, plain "
+          f"{t_p * 1e3:.1f} ms (every field equal); device_decompress wall "
+          f"C {d_c * 1e3:.1f} ms ({len(corpus) / d_c / 1e6:.2f} MB/s, best "
+          f"of 2), plain {d_p * 1e3:.1f} ms "
+          f"({len(corpus) / d_p / 1e6:.2f} MB/s)", flush=True)
+
+    # ---- _build_plans and the encode walls ----------------------------------
+    cp = get_cparams(1, len(corpus))
+    comp = pipeline.TorchCompressor(level=1, device=dev)
+    mls = min(max(cp.min_match, 4), 8)
+    arr = np.frombuffer(corpus, np.uint8)
+    batches = []
+    for b in range(0, len(corpus) // N_BLOCK, 32):
+        blocks = torch.from_numpy(
+            arr[b * N_BLOCK:(b + 32) * N_BLOCK].reshape(32, N_BLOCK).copy()
+        ).to(dev)
+        lens = torch.full((32,), N_BLOCK, dtype=torch.int32, device=dev)
+        stats, _ = pipeline._analyze(blocks, lens, cp.hash_log, mls,
+                                     N_BLOCK // 8)
+        batches.append((stats.cpu().numpy(), lens.cpu().numpy()))
+
+    def plans():
+        return [comp._build_plans(st, ln, cp.strategy, N_BLOCK)
+                for st, ln in batches]
+
+    p_c, plans_c = best(plans)
+    with plain_branches():
+        p_p, plans_p = best(plans)
+    assert pickle.dumps(plans_c) == pickle.dumps(plans_p), \
+        "_build_plans: C != plain"
+    # what of the C run is still Python: its parts, and the time in C
+    split = timed_calls(
+        [(pipeline, "build_sequences_header_from_hists", "sequences header"),
+         (pipeline, "_fse_bit_cost", "bit-cost estimate"),
+         (pipeline.TorchCompressor, "_plan_literals", "literals plan")]
+        + [(native, name, "C calls") for name in (
+            "fse_normalize", "fse_write_ncount", "fse_build_ctable",
+            "fse_compress_2state", "huf_build_write")])
+    with split:
+        t0 = time.perf_counter()
+        plans()
+        p_split = time.perf_counter() - t0
+    in_c = split.seconds.get("C calls", 0.0)
+    print(f"host C, _build_plans split (C branch, one run of "
+          f"{p_split * 1e3:.1f} ms): " + ", ".join(
+              f"{k} {v * 1e3:.1f} ms" for k, v in split.seconds.items())
+          + f"; in Python {(1 - in_c / p_split) * 100:.1f}%", flush=True)
+    walls = {}
+    for level in (1, 5):
+        enc = pipeline.TorchCompressor(level=level, device=dev)
+        w_c, f_c = best(lambda: enc.compress(corpus))
+        with plain_branches():
+            w_p, f_p = best(lambda: enc.compress(corpus))
+        assert f_c == f_p, f"level {level} encode: C frame != plain frame"
+        walls[level] = (w_c, w_p)
+    print(f"host C, _build_plans of the {mib} MiB corpus's level-1 stats "
+          f"({len(batches)} batches of 32 blocks): C {p_c * 1e3:.1f} ms, "
+          f"plain {p_p * 1e3:.1f} ms (equal plans); encode wall, best of 2: "
+          + ", ".join(f"level {lv} C {c * 1e3:.1f} ms "
+                      f"({len(corpus) / c / 1e6:.2f} MB/s), plain "
+                      f"{p * 1e3:.1f} ms ({len(corpus) / p / 1e6:.2f} MB/s)"
+                      for lv, (c, p) in walls.items())
+          + " (equal frames)", flush=True)
+
+    # ---- decompress_stream ------------------------------------------------
+    for level in (1, 19):
+        data, stream = streams[level]
+        t_c, out = best(lambda: multihost.decompress_stream(stream))
+        assert out == data, f"decompress_stream level {level} != input"
+        line = (f"host C, decompress_stream of the level-{level} stream "
+                f"({len(data)} B): C {len(data) / t_c / 1e6:.2f} MB/s "
+                f"({t_c:.3f} s, best of 2)")
+        if level == 19:
+            with plain_branches():
+                t_p, out = best(lambda: multihost.decompress_stream(stream),
+                                reps=1)
+            assert out == data, "plain decompress_stream != input"
+            line += (f", plain {len(data) / t_p / 1e6:.2f} MB/s "
+                     f"({t_p:.3f} s); C == plain == input")
+        print(line, flush=True)
+
+    # ---- compress_long_sharded, level 1 -------------------------------------
+    data = long_corpus(LONG_BYTES)[:LONG_PREFIX_BYTES]
+    out, walls = {}, {}
+    for name in ("C", "plain", "plain", "C"):        # in turns, best of 2
+        split = timed_calls([
+            (ldm_sharded.ShardedLdmState, "__init__", "discovery"),
+            (ldm_sharded.ShardedLdmState, "find_long_matches",
+             "find_long_matches"),
+            (tldm, "find_sequences_fast", "gap parse"),
+            (tblock, "compress_literals", "literals"),
+            (tblock, "write_sequences_section", "sequences")])
+        with contextlib.ExitStack() as stack:
+            if name == "plain":
+                stack.enter_context(plain_branches())
+            with split:
+                t0 = time.perf_counter()
+                f = ldm_sharded.compress_long_sharded(data, level=1,
+                                                      device=dev)
+                t = time.perf_counter() - t0
+        assert out.setdefault(name, f) == f, "two runs differ"
+        walls.setdefault(name, []).append(t)
+        print(f"host C, compress_long_sharded level 1, long_log 27, "
+              f"{len(data)} B -> {len(f)} B, {name}: "
+              f"{len(data) / t / 1e6:.2f} MB/s ({t:.3f} s); host "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                          for k, v in split.seconds.items()), flush=True)
+    assert out["C"] == out["plain"], "compress_long_sharded: C != plain"
+    print("host C, compress_long_sharded level 1, best of 2: " + ", ".join(
+        f"{k} {len(data) / min(v) / 1e6:.2f} MB/s" for k, v in walls.items())
+        + " (equal frames)", flush=True)
 
 
 def main() -> int:
@@ -1659,7 +1831,10 @@ def main() -> int:
     kernels += ldm_phase(dev)
 
     # ---- 10. the multi-host pzstd (host codec) ----------------------------
-    pzstd_phase(corpus)
+    streams = pzstd_phase(corpus)
+
+    # ---- 11. the host C against the host halves' plain versions ------------
+    host_c_phase(dev, corpus, frame, streams)
     print(card_line(), flush=True)       # again, beside the numbers below
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -95,8 +95,9 @@ def _frame_fields(pf):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_parse_frame_matches(name):
-    """The port's host parse (Python sequence decode) equals zstd_tpu's,
-    which runs its C library's sequence decode where that is built."""
+    """The port's host parse (the C sequence decode of csrc/host/decode.c)
+    equals zstd_tpu's, which runs its C library's sequence decode where
+    that is built."""
     blob = fixture(name)
     want = jdec._parse_jobs(blob, 31)
     got = tdec._parse_jobs(blob, 31)

@@ -1,9 +1,10 @@
 """zstd_tpu_torch's copied host layer against zstd_tpu's.
 
 zstd_tpu's planning takes its C library where one is built (format/fse.py,
-format/huffman.py, xxhash64.py); the port carries only the Python branches,
-so these tests hold the copies to whatever zstd_tpu computes, exactly. The
-stats vectors come from the port's own stage A on real blocks.
+format/huffman.py, xxhash64.py), and so does the port's, over its own copy
+of that C (tests/test_torch_host_c.py holds both branches); these tests
+hold the port to whatever zstd_tpu computes, exactly. The stats vectors
+come from the port's own stage A on real blocks.
 """
 
 import dataclasses

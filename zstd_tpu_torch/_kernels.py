@@ -27,8 +27,9 @@ _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu",
            "lazy_resolve.cu", "xla_walk.cu", "ldm_fingerprint.cu",
            "ldm_lookback.cu")
-HOST_SOURCES = ("host/cblock.c", "host/encode.c", "host/fast.c",
-                "host/huf.c", "host/lazy.c", "host/opt.c", "host/row.c")
+HOST_SOURCES = ("host/cblock.c", "host/decode.c", "host/encode.c",
+                "host/fast.c", "host/huf.c", "host/lazy.c", "host/opt.c",
+                "host/row.c", "host/xxh64.c")
 HOST_LIB = "host"
 
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
@@ -104,6 +105,24 @@ _HOST_SIGNATURES = {
     "zt_compress_row_frame": (_I64, [_P, _L, _L, _L, _L, _I, _P,
                                      _I, _I, _I, _I, _I, _P, _P, _P, _P, _I,
                                      _P, _L]),
+    "zt_split_points": (_I64, [_P, _L, _L, _L, _L, _P, _L]),
+    # the block decoder (decode.c)
+    "zt_dctx_new": (_P, []),
+    "zt_dctx_free": (None, [_P]),
+    "zt_decompress_block": (_I64, [_P, _P, _L, _P, _L, _L, _L, _L]),
+    "zt_decompress_blocks": (_I64, [_P, _P, _L, _P, _L, _L, _L, _L, _P]),
+    "zt_decode_sequences": (_I64, [_P, _P, _L, _P, _P, _P, _L]),
+    "zt_xxh64": (ctypes.c_uint64, [_P, ctypes.c_size_t, ctypes.c_uint64]),
+    # the entropy planning and encoders (huf.c, encode.c)
+    "zt_fse_normalize": (_I64, [_P, _I, _L, _I, _I, _P]),
+    "zt_fse_write_ncount": (_I64, [_P, _I, _I, _P, _L]),
+    "zt_fse_build_ctable": (_I64, [_P, _I, _I, _P, _P, _P]),
+    "zt_fse_compress_2state": (_I64, [_P, _L, _I, _P, _P, _P, _P, _L]),
+    "zt_huf_build_write": (_I64, [_P, _I, _I, _P, _P, _P, _L, _P]),
+    "zt_huf_encode": (_I64, [_P, _L, _P, _P, _P, _L]),
+    "zt_huf_encode4": (_I64, [_P, _L, _P, _P, _P, _L]),
+    "zt_encode_sequences": (_I64, [_L] + [_P] * 8
+                            + [_I, _P, _P, _P] * 3 + [_P, _L]),
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its

@@ -7,8 +7,9 @@ loops; zstd_decompress_block.c:1001 ZSTD_execSequence):
 
   host:   frame and block headers, literal-section headers, Huffman table
           descriptions, FSE sequence decode + repcode resolution (byte
-          serial, a few KB per block; the copied Python branch, as the port
-          carries no C library)
+          serial, a few KB per block; in the port's copy of native/decode.c,
+          csrc/host/decode.c, as zstd_tpu does; _parse_frame_plain runs the
+          copied Python branch instead)
   device: ops/decode_dev.fused_frame_decode for each group of frames: every
           literal stream of every block decoded by the Huffman lane kernel,
           the literal pool assembled on the device, and the frame-global
@@ -29,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import native
 from .constants import BT_COMPRESSED, BT_RAW, BT_RLE
 from .errors import Corruption, ZstdError, ZstdErrorCode
 from .format import huffman
@@ -305,12 +307,56 @@ class _ParsedFrame:
 def _parse_frame(data: bytes, pos: int, window_log_max: int) -> _ParsedFrame:
     """Parse one frame's blocks on the host: literal streams, Huffman tables,
     pool segments, and the frame-global sequence arrays (FSE sequence
-    decode + repcode resolution in Python). No device work."""
+    decode + repcode resolution in C, one decoder context a frame, whose
+    tables and repcodes carry from block to block). No device work."""
+    ctx = native.dctx_new()
+    try:
+        def sequences(section: bytes):
+            res = native.decode_sequences(ctx, section)
+            if res is None:
+                raise Corruption("sequences section decode failed")
+            return res
+        return _parse_blocks(data, pos, window_log_max, sequences)
+    finally:
+        native.dctx_free(ctx)
+
+
+class _PlainSequences:
+    """The Python branch of a frame's sequence decode: the copied FSE
+    decode and the repcode loop, with the tables and repcodes they carry
+    from block to block."""
+
+    def __init__(self):
+        self.fst = sq.FseDecodeState()
+        self.reps = (1, 4, 8)
+
+    def __call__(self, section: bytes):
+        nb, self.fst, c2 = sq.parse_sequences_section(section, self.fst)
+        if not nb:
+            return (np.zeros(0, np.int64),) * 3
+        lls, obs, mls = sq.decode_sequences(section[c2:], nb, self.fst)
+        offs = np.zeros(nb, np.int64)
+        r = self.reps
+        for i in range(nb):
+            offs[i] = resolve_offset(r, int(obs[i]), int(lls[i]))
+            r = update_reps(r, int(obs[i]), int(lls[i]))
+        self.reps = r
+        return lls, mls, offs
+
+
+def _parse_frame_plain(data: bytes, pos: int,
+                       window_log_max: int) -> _ParsedFrame:
+    """_parse_frame with the Python branch of the sequence decode."""
+    return _parse_blocks(data, pos, window_log_max, _PlainSequences())
+
+
+def _parse_blocks(data: bytes, pos: int, window_log_max: int,
+                  sequences) -> _ParsedFrame:
+    """The body of _parse_frame; `sequences` decodes one block's sequences
+    section into (literal lengths, match lengths, absolute offsets)."""
     hdr = parse_frame_header(data[pos:], window_log_max)
     p = pos + hdr.header_size
     hst = litmod.HufDecodeState()
-    fst = sq.FseDecodeState()
-    reps = (1, 4, 8)
 
     lanes: list[tuple[bytes, int]] = []    # (stream bytes, n symbols)
     lane_tab: list[int] = []               # lane -> table index
@@ -394,23 +440,14 @@ def _parse_frame(data: bytes, pos: int, window_log_max: int) -> _ParsedFrame:
                     host_pool += lit
                     pool_off += len(lit)
                 lit_count = len(lit)
-            nb, fst, c2 = sq.parse_sequences_section(payload[used:], fst)
-            if nb:
-                lls, obs, mls = sq.decode_sequences(payload[used + c2 :], nb,
-                                                    fst)
+            lls, mls, offs = sequences(payload[used:])
+            if len(lls):
                 # the executor takes literal lengths that stay within the
                 # block's literals (host mirror: block.py 'literal buffer
                 # overrun'); checked here, on both devices alike
                 if int(lls.sum()) > lit_count:
                     raise Corruption("literal buffer overrun (device decode)")
-                offs = np.zeros(nb, np.int64)
-                r = reps
-                for i in range(nb):
-                    d = resolve_offset(r, int(obs[i]), int(lls[i]))
-                    offs[i] = d
-                    r = update_reps(r, int(obs[i]), int(lls[i]))
-                reps = r
-                span = int(lls.sum() + mls.sum())
+                span = int(lls.sum()) + int(mls.sum())
                 seq_lists.append((lls.astype(np.int64),
                                   mls.astype(np.int64),
                                   offs.astype(np.int64), lit_count))

@@ -4,8 +4,8 @@ Copy of compress and decompress in zstd_tpu/format/codec.py (zstd's
 ZSTD_compress, lib/compress/zstd_compress.c:5423, and ZSTD_decompress,
 lib/decompress/zstd_decompress.c:1201 -> ZSTD_decompressMultiFrame:1068),
 without a target block size or the tracer. compress runs the host encoder
-(format/frame.py over the C of csrc/host); decompress runs the Python
-branch of format/frame.decompress_frame.
+(format/frame.py over the C of csrc/host); decompress runs
+format/frame.decompress_frame (the block decoder of csrc/host/decode.c).
 """
 
 from __future__ import annotations

@@ -2,15 +2,19 @@
 skippable frames.
 
 Copy of write_frame_header, FrameHeader, parse_frame_header, is_skippable,
-_split_points, _finish_c_frame, compress_frame and the Python branch of
-decompress_frame in zstd_tpu/format/frame.py (zstd's
+_split_points, _finish_c_frame, compress_frame, decompress_frame and
+_decompress_frame_native in zstd_tpu/format/frame.py (zstd's
 lib/compress/zstd_compress.c ZSTD_writeFrameHeader:4626 and
 ZSTD_compress_frameChunk:4527, lib/decompress/zstd_decompress.c
 ZSTD_getFrameHeader_advanced:447 and ZSTD_decompressFrame:951), without a
 window prefix (--patch-from), a target block size or an external sequence
 producer. compress_frame runs the whole-frame C paths of csrc/host/cblock.c
 where zstd_tpu does (ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER at their
-defaults), else the per-block loop.
+defaults), else the per-block loop. decompress_frame runs the port's copy
+of native/decode.c (csrc/host/decode.c) as zstd_tpu's does, and its Python
+block loop where that C declines; decompress_frame_plain is that Python
+branch alone. _split_points takes the C of csrc/host/encode.c at its
+default threshold, as zstd_tpu's does.
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ import dataclasses
 import numpy as np
 
 from .. import native
-from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_RAW,
-                         BT_RESERVED, BT_RLE, SKIPPABLE_MAGIC_MAX,
+from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_COMPRESSED,
+                         BT_RAW, BT_RESERVED, BT_RLE, SKIPPABLE_MAGIC_MAX,
                          SKIPPABLE_MAGIC_MIN, WINDOWLOG_LIMIT_DEFAULT,
                          ZSTD_MAGIC)
 from ..errors import Corruption, ZstdError, ZstdErrorCode
@@ -98,6 +102,16 @@ def _split_points(full: np.ndarray, bs: int, be: int,
     4 KiB chunk's coarse byte histogram against the running segment
     histogram and cut where the L1 divergence passes `threshold`, no
     segment under 16 KiB. Returns interior split offsets."""
+    chunk, min_seg = 4096, 16384
+    if threshold != 0.35 or be - bs < 2 * min_seg:
+        return _split_points_plain(full, bs, be, threshold)
+    # the exact-integer C of the Python branch's loop
+    return native.split_points(full, bs, be, chunk, min_seg)
+
+
+def _split_points_plain(full: np.ndarray, bs: int, be: int,
+                        threshold: float = 0.35) -> list[int]:
+    """The Python branch of _split_points."""
     chunk, min_seg = 4096, 16384
     n = be - bs
     if n < 2 * min_seg:
@@ -322,15 +336,130 @@ def parse_frame_header(data: bytes, window_log_max: int = WINDOWLOG_LIMIT_DEFAUL
                        single_segment, pos)
 
 
-def decompress_frame(data: bytes, pos: int,
-                     window_log_max: int = WINDOWLOG_LIMIT_DEFAULT
-                     ) -> tuple[bytes, int]:
-    """Decode one zstd frame starting at data[pos:]; returns (content, end)."""
+def _frame_start(data: bytes, pos: int, window_log_max: int
+                 ) -> tuple[FrameHeader, int]:
     hdr = parse_frame_header(data[pos:], window_log_max)
     if hdr.dict_id:
         raise ZstdError(ZstdErrorCode.dictionary_wrong,
                         "frame requires a dictionary (unsupported here)")
-    pos += hdr.header_size
+    return hdr, pos + hdr.header_size
+
+
+def _decompress_frame_native(data: bytes, pos: int, hdr: FrameHeader):
+    """The block decoder in C over a preallocated window buffer. Returns
+    (content, end_pos), or None where zstd_tpu hands the frame to its Python
+    decoder: a window above 2^27 with no content size, or any block the C
+    declines."""
+    window = hdr.window_size or BLOCK_MAX_SIZE
+    if hdr.frame_content_size is not None:
+        buf = np.empty(hdr.frame_content_size + BLOCK_MAX_SIZE,
+                       dtype=np.uint8)
+    else:
+        # unknown content size: a ring buffer that flushes what falls out of
+        # the window. A window beyond the ring's capacity would leave the
+        # flush less than the window (no forward progress), so such frames
+        # go to the fully buffered Python decoder
+        if window > (1 << 27):
+            return None
+        buf = np.empty(2 * window + 2 * BLOCK_MAX_SIZE, dtype=np.uint8)
+    flushed: list[bytes] = []
+    block_max = min(window, BLOCK_MAX_SIZE)
+    if hdr.single_segment and hdr.frame_content_size is not None:
+        block_max = min(max(hdr.frame_content_size, 1), BLOCK_MAX_SIZE)
+
+    def checked(content: bytes, pos: int):
+        if hdr.checksum_flag:
+            if pos + 4 > len(data):
+                return None
+            expect = int.from_bytes(data[pos : pos + 4], "little")
+            pos += 4
+            if content_checksum(content) != expect:
+                raise ZstdError(ZstdErrorCode.checksum_wrong,
+                                "content checksum mismatch")
+        return content, pos
+
+    ctx = native.dctx_new()
+    try:
+        if hdr.frame_content_size is not None:
+            # the whole frame in C: block headers and dispatch too
+            res = native.decompress_blocks(
+                ctx, data, pos, buf, 0, hdr.window_size or (1 << 62),
+                block_max)
+            if res is None or res[0] != hdr.frame_content_size:
+                return None
+            return checked(buf[:res[0]].tobytes(), pos + res[1])
+        out_pos = 0
+        last = False
+        while not last:
+            if out_pos + BLOCK_MAX_SIZE > len(buf):
+                keep = min(window, out_pos)
+                cut = out_pos - keep
+                flushed.append(buf[:cut].tobytes())
+                buf[:keep] = buf[cut:out_pos]
+                out_pos = keep
+            if pos + BLOCK_HEADER_SIZE > len(data):
+                return None
+            bh = int.from_bytes(data[pos : pos + 3], "little")
+            pos += 3
+            last = bool(bh & 1)
+            btype = (bh >> 1) & 3
+            bsize = bh >> 3
+            if btype == BT_RAW:
+                # bsize > block_max is corruption (ZSTD_getcBlockSize): both
+                # decoders are equally strict
+                if pos + bsize > len(data) or out_pos + bsize > len(buf) \
+                        or bsize > block_max:
+                    return None
+                buf[out_pos : out_pos + bsize] = np.frombuffer(
+                    data[pos : pos + bsize], dtype=np.uint8)
+                out_pos += bsize
+                pos += bsize
+            elif btype == BT_RLE:
+                if pos + 1 > len(data) or bsize > block_max or \
+                        out_pos + bsize > len(buf):
+                    return None
+                buf[out_pos : out_pos + bsize] = data[pos]
+                out_pos += bsize
+                pos += 1
+            elif btype == BT_COMPRESSED:
+                if bsize > block_max or pos + bsize > len(data):
+                    return None
+                window_low = max(0, out_pos - (hdr.window_size or (1 << 62)))
+                r = native.decompress_block(ctx, data[pos : pos + bsize], buf,
+                                            out_pos, window_low, block_max)
+                if r < 0:
+                    return None
+                out_pos += r
+                pos += bsize
+            else:
+                return None
+        return checked(b"".join(flushed) + buf[:out_pos].tobytes(), pos)
+    finally:
+        native.dctx_free(ctx)
+
+
+def decompress_frame(data: bytes, pos: int,
+                     window_log_max: int = WINDOWLOG_LIMIT_DEFAULT
+                     ) -> tuple[bytes, int]:
+    """Decode one zstd frame starting at data[pos:]; returns (content, end)."""
+    hdr, pos = _frame_start(data, pos, window_log_max)
+    fast = _decompress_frame_native(data, pos, hdr)
+    if fast is not None:
+        return fast
+    return _decompress_blocks(data, pos, hdr)
+
+
+def decompress_frame_plain(data: bytes, pos: int,
+                           window_log_max: int = WINDOWLOG_LIMIT_DEFAULT
+                           ) -> tuple[bytes, int]:
+    """The Python branch of decompress_frame."""
+    hdr, pos = _frame_start(data, pos, window_log_max)
+    return _decompress_blocks(data, pos, hdr)
+
+
+def _decompress_blocks(data: bytes, pos: int,
+                       hdr: FrameHeader) -> tuple[bytes, int]:
+    """The Python block loop of decompress_frame, from the first block."""
     out = bytearray()
     state = BlockDState()
     block_max = min(hdr.window_size or BLOCK_MAX_SIZE, BLOCK_MAX_SIZE)

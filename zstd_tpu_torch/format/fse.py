@@ -1,13 +1,17 @@
 """Finite State Entropy (tANS) — exact RFC 8878 semantics.
 
-Copy of the Python branches of zstd_tpu/format/fse.py: table-log selection,
+Copy of zstd_tpu/format/fse.py: table-log selection,
 the exact normalization (zstd's lib/compress/fse_compress.c
 FSE_normalizeCount:465, FSE_normalizeM2:379), the normalized-count
 serialization and parsing (FSE_writeNCount, "FSE Table Description"), the
 encode- and decode-table builds (FSE_buildCTable_wksp:68,
 fse_decompress.c FSE_buildDTable_internal) and the interleaved 2-state
 byte codec used for Huffman weights (FSE_compress_usingCTable:610,
-FSE_decompress_usingDTable_generic). Host-side numpy + Python ints.
+FSE_decompress_usingDTable_generic). normalize_count, write_ncount,
+build_ctable and fse_compress_2state call the port's copy of zstd_tpu's C
+(csrc/host/huf.c, encode.c) where zstd_tpu/format/fse.py does, and run
+their Python branch, kept as the *_plain functions, where that C declines.
+Host-side numpy + Python ints.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import dataclasses
 import numpy as np
 
 from ..constants import FSE_DEFAULT_TABLELOG, FSE_MAX_TABLELOG, FSE_MIN_TABLELOG, highbit32
+from .. import native
 from ..errors import Corruption, ZstdError, ZstdErrorCode
 from .bitstream import BitReader, BitWriter, ForwardBitReader
 
@@ -121,19 +126,38 @@ def _normalize_m2(norm: np.ndarray, table_log: int, count: np.ndarray,
             tmp_total = end
 
 
-def normalize_count(count: np.ndarray, table_log: int, total: int,
-                    max_symbol: int, use_low_prob_count: bool) -> np.ndarray:
-    """Exact FSE_normalizeCount. Returns int32 normalized counts.
-
-    Raises if total == count[s] for some s (RLE case; caller must handle).
-    """
+def _checked_table_log(table_log: int, total: int, max_symbol: int) -> int:
     if table_log == 0:
         table_log = FSE_DEFAULT_TABLELOG
     if not (FSE_MIN_TABLELOG <= table_log <= FSE_MAX_TABLELOG):
         raise ZstdError(ZstdErrorCode.tableLog_tooLarge)
     if table_log < min_table_log(total, max_symbol):
         raise ZstdError(ZstdErrorCode.GENERIC, "tableLog too small")
+    return table_log
 
+
+def normalize_count(count: np.ndarray, table_log: int, total: int,
+                    max_symbol: int, use_low_prob_count: bool) -> np.ndarray:
+    """Exact FSE_normalizeCount. Returns int32 normalized counts.
+
+    Raises if total == count[s] for some s (RLE case; caller must handle).
+    """
+    table_log = _checked_table_log(table_log, total, max_symbol)
+    norm = native.fse_normalize(count, table_log, total, max_symbol,
+                                use_low_prob_count)
+    if norm is not None:
+        return norm
+    # the C declines the RLE case and an M2 failure: the Python branch
+    # raises the typed error callers expect
+    return normalize_count_plain(count, table_log, total, max_symbol,
+                                 use_low_prob_count)
+
+
+def normalize_count_plain(count: np.ndarray, table_log: int, total: int,
+                          max_symbol: int,
+                          use_low_prob_count: bool) -> np.ndarray:
+    """The Python branch of normalize_count."""
+    table_log = _checked_table_log(table_log, total, max_symbol)
     low_prob_count = -1 if use_low_prob_count else 1
     scale = 62 - table_log
     step = (1 << 62) // total
@@ -179,6 +203,15 @@ def normalize_count(count: np.ndarray, table_log: int, total: int,
 
 def write_ncount(norm: np.ndarray, max_symbol: int, table_log: int) -> bytes:
     """Serialize normalized counts (FSE_writeNCount exact bit layout)."""
+    r = native.fse_write_ncount(norm, max_symbol, table_log)
+    if r is not None:
+        return r
+    return write_ncount_plain(norm, max_symbol, table_log)
+
+
+def write_ncount_plain(norm: np.ndarray, max_symbol: int,
+                       table_log: int) -> bytes:
+    """The Python branch of write_ncount."""
     out = bytearray()
     bit_stream = 0
     bit_count = 0
@@ -390,6 +423,16 @@ class CTable:
 
 
 def build_ctable(norm: np.ndarray, max_symbol: int, table_log: int) -> CTable:
+    if table_log <= 12:
+        res = native.fse_build_ctable(norm, max_symbol, table_log)
+        if res is not None:
+            return CTable(table_log, max_symbol, *res)
+    return build_ctable_plain(norm, max_symbol, table_log)
+
+
+def build_ctable_plain(norm: np.ndarray, max_symbol: int,
+                       table_log: int) -> CTable:
+    """The Python branch of build_ctable (FSE_buildCTable_wksp)."""
     table_size = 1 << table_log
     spread, _ = _spread_symbols(norm, table_log)
 
@@ -462,6 +505,16 @@ class CState:
 def fse_compress_2state(data: bytes, ct: CTable) -> bytes:
     """FSE_compress_usingCTable (64-bit accumulator path). Empty result means
     'not compressible here' per the reference convention for <=2 symbols."""
+    if len(data) <= 2:
+        return b""
+    r = native.fse_compress_2state(data, ct)
+    if r is not None:
+        return r
+    return fse_compress_2state_plain(data, ct)
+
+
+def fse_compress_2state_plain(data: bytes, ct: CTable) -> bytes:
+    """The Python branch of fse_compress_2state."""
     n = len(data)
     if n <= 2:
         return b""

@@ -1,14 +1,17 @@
 """Huffman coding for literals — exact RFC 8878 semantics.
 
-Copy of the Python branches of zstd_tpu/format/huffman.py: canonical tree
+Copy of zstd_tpu/format/huffman.py: canonical tree
 construction with the 11-bit height limit (zstd's lib/compress/huf_compress.c
 HUF_sort:620, HUF_buildTree:681, HUF_setMaxHeight:376,
 HUF_buildCTableFromTree:730), the tree description serialization
 (HUF_writeCTable_wksp:248, HUF_compressWeights:147) and its parsing
 (HUF_readStats), the single-symbol decode table, the 1- and 4-stream
 host decoders, and the 1- and 4-stream encoders (HUF_compress1X_usingCTable,
-HUF_compress4X_usingCTable; their bytes are the Python branches', written
-through bitstream.pack_fields).
+HUF_compress4X_usingCTable). build_huf_ctable_with_tree, huf_encode_1x and
+huf_encode_4x call the port's copy of zstd_tpu's C (csrc/host/huf.c,
+encode.c) where zstd_tpu/format/huffman.py does; their Python branches are
+the *_plain functions (the encoders' bytes written through
+bitstream.pack_fields).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import native
 from ..constants import HUF_WEIGHT_FSE_LOG_MAX, highbit32
 from ..errors import Corruption
 from . import fse
@@ -207,6 +211,30 @@ def build_huf_ctable(count: np.ndarray, max_symbol: int,
     return HufCTable(max_nb_bits, max_symbol, nb_bits, value)
 
 
+def build_huf_ctable_with_tree(count: np.ndarray, max_symbol: int,
+                               max_nb_bits: int = HUF_TABLELOG_DEFAULT
+                               ) -> tuple[HufCTable, bytes]:
+    """build_huf_ctable + write_tree_description in one C call
+    (HUF_buildCTable_wksp + HUF_writeCTable_wksp, zstd's
+    lib/compress/huf_compress.c:756,248), the bytes of the Python pair."""
+    r = native.huf_build_write(count, max_symbol, max_nb_bits)
+    if r == -2:
+        raise Corruption(
+            "cannot serialize huffman tree (>128 symbols, weights incompressible)")
+    if r is not None:
+        tlog, nb, val, tree = r
+        return HufCTable(tlog, max_symbol, nb, val), tree
+    return build_huf_ctable_with_tree_plain(count, max_symbol, max_nb_bits)
+
+
+def build_huf_ctable_with_tree_plain(count: np.ndarray, max_symbol: int,
+                                     max_nb_bits: int = HUF_TABLELOG_DEFAULT
+                                     ) -> tuple[HufCTable, bytes]:
+    """The Python pair of build_huf_ctable_with_tree."""
+    ct = build_huf_ctable(count, max_symbol, max_nb_bits)
+    return ct, write_tree_description(ct)
+
+
 def huf_estimate_compressed_size(ct: HufCTable, count: np.ndarray,
                                  max_symbol: int) -> int:
     bits = int(np.sum(ct.nb_bits[: max_symbol + 1] * count[: max_symbol + 1]))
@@ -224,6 +252,14 @@ def huf_validate_ctable(ct: HufCTable, count: np.ndarray, max_symbol: int) -> bo
 
 def huf_encode_1x(data: bytes, ct: HufCTable) -> bytes:
     """HUF_compress1X_usingCTable: symbols encoded last-to-first."""
+    r = native.huf_encode(data, ct.nb_bits, ct.value)
+    if r is not None:
+        return r
+    return huf_encode_1x_plain(data, ct)
+
+
+def huf_encode_1x_plain(data: bytes, ct: HufCTable) -> bytes:
+    """The Python branch of huf_encode_1x."""
     syms = np.frombuffer(data, dtype=np.uint8)[::-1]
     return pack_fields(ct.value[syms], ct.nb_bits[syms])
 
@@ -231,12 +267,22 @@ def huf_encode_1x(data: bytes, ct: HufCTable) -> bytes:
 def huf_encode_4x(data: bytes, ct: HufCTable) -> bytes | None:
     """HUF_compress4X_usingCTable: 4 segments + 6-byte jump table.
     Returns None when a stream exceeds format limits (caller falls back)."""
+    if len(data) < 12:
+        return None
+    r = native.huf_encode4(data, ct.nb_bits, ct.value)
+    if r is not None:
+        return r
+    return huf_encode_4x_plain(data, ct)
+
+
+def huf_encode_4x_plain(data: bytes, ct: HufCTable) -> bytes | None:
+    """The Python branch of huf_encode_4x."""
     n = len(data)
     if n < 12:
         return None
     seg = (n + 3) // 4
     parts = [data[i * seg : min((i + 1) * seg, n)] for i in range(4)]
-    streams = [huf_encode_1x(p, ct) for p in parts]
+    streams = [huf_encode_1x_plain(p, ct) for p in parts]
     if any(len(s) == 0 or len(s) > 65535 for s in streams[:3]):
         return None
     jump = b"".join(len(s).to_bytes(2, "little") for s in streams[:3])

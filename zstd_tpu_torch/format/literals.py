@@ -118,8 +118,8 @@ def _huf_compress(lit: bytes, single_stream: bool, prev: HufEntropyState,
 
     huff_log = huffman.huf_optimal_table_log(huffman.HUF_TABLELOG_DEFAULT, n, max_symbol)
     try:
-        ct = huffman.build_huf_ctable(count, max_symbol, huff_log)
-        hdr = huffman.write_tree_description(ct)
+        ct, hdr = huffman.build_huf_ctable_with_tree(count, max_symbol,
+                                                     huff_log)
     except Corruption:
         # unserializable tree (>128 symbols with incompressible weights):
         # the reference treats any HUF error as "emit raw literals"

@@ -2,9 +2,11 @@
 writer (encoder), header parsing and the 3-state FSE sequence decode
 (decoder).
 
-Copy of the Python branches of zstd_tpu/format/sequences.py that the device
-pipeline's host planning, the host frame encoder (format/frame.py) and the
-device decoder's host parse use. Parity targets: zstd's
+Copy of zstd_tpu/format/sequences.py's functions that the device pipeline's
+host planning, the host frame encoder (format/frame.py) and the device
+decoder's host parse use. encode_sequences calls the port's copy of
+zstd_tpu's C (csrc/host/encode.c) where zstd_tpu's does; its Python branch
+is encode_sequences_plain. Parity targets: zstd's
 lib/compress/zstd_compress_sequences.c (ZSTD_selectEncodingType,
 ZSTD_buildCTable, ZSTD_fseBitCost, ZSTD_encodeSequences_body:291),
 lib/compress/zstd_compress.c ZSTD_buildSequencesStatistics:2757 (LL table,
@@ -29,6 +31,7 @@ from ..constants import (
     OF_DEFAULT_DIST, OF_DEFAULT_LOG, OF_FSE_LOG,
     _LL_CODE_TABLE, _ML_CODE_TABLE,
 )
+from .. import native
 from ..errors import Corruption
 from . import fse
 from .bitstream import BitReader, pack_fields
@@ -255,7 +258,20 @@ def _state_chain(ct: fse.CTable, codes: np.ndarray):
 def encode_sequences(seqs: SeqStore, llc: np.ndarray, ofc: np.ndarray,
                      mlc: np.ndarray, ct_ll: fse.CTable, ct_of: fse.CTable,
                      ct_ml: fse.CTable) -> bytes:
-    """ZSTD_encodeSequences_body's bitstream: the last sequence's extra bits
+    """ZSTD_encodeSequences_body's bitstream."""
+    assert seqs.nb_seq > 0
+    r = native.encode_sequences(seqs.lit_length, seqs.off_base, seqs.ml_base,
+                                llc, ofc, mlc, LL_BITS, ML_BITS,
+                                ct_ll, ct_of, ct_ml)
+    if r is not None:
+        return r
+    return encode_sequences_plain(seqs, llc, ofc, mlc, ct_ll, ct_of, ct_ml)
+
+
+def encode_sequences_plain(seqs: SeqStore, llc: np.ndarray, ofc: np.ndarray,
+                           mlc: np.ndarray, ct_ll: fse.CTable,
+                           ct_of: fse.CTable, ct_ml: fse.CTable) -> bytes:
+    """The Python branch of encode_sequences: the last sequence's extra bits
     (LL, ML, OF), then for each earlier sequence, last to first, the OF, ML
     and LL state fields and its LL, ML and OF extra bits, then the ML, OF
     and LL final states. The three state chains are independent, so each

@@ -1,11 +1,15 @@
 """XXH64 content checksum (frame checksum = low 32 bits of XXH64, seed 0).
 
-Copy of the pure-Python branch of zstd_tpu/xxhash64.py (the port carries no C
-library). Bit-exact with zstd's vendored lib/common/xxhash.h. It runs at a
-few MB/s, so large frames are best made with checksum=False.
+Copy of the one-shot half of zstd_tpu/xxhash64.py: content_checksum calls
+the port's copy of native/xxh64.c (csrc/host/xxh64.c, through native.xxh64)
+as zstd_tpu's does; _xxh64_py, the pure-Python branch, is its plain version
+(content_checksum_plain). Bit-exact with zstd's vendored
+lib/common/xxhash.h.
 """
 
 from __future__ import annotations
+
+from . import native
 
 _P1 = 11400714785074694791
 _P2 = 14029467366897019727
@@ -75,4 +79,9 @@ def _xxh64_py(data: bytes, seed: int = 0) -> int:
 
 def content_checksum(data: bytes) -> int:
     """Frame Content_Checksum: low 32 bits of XXH64(data, 0)."""
+    return native.xxh64(data, 0) & 0xFFFFFFFF
+
+
+def content_checksum_plain(data: bytes) -> int:
+    """content_checksum through the pure-Python branch."""
     return _xxh64_py(bytes(data), 0) & 0xFFFFFFFF
