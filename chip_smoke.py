@@ -31,8 +31,10 @@ and 19 (phase 9), and the multi-host pzstd, compress_my_shard and
 decompress_stream, on the host codec (phase 10), holds the host C under the
 host halves (the decode's sequence parse, the block decoder, XXH64, the
 entropy planning and encoders) against their plain Python branches and
-times both (phase 11), and prints one JSON line of kernel timings before
-its last line:
+times both (phase 11), drives the command line, python -m
+zstd_tpu_torch.cli, through the device encode and decode and every host
+feature it reaches (phase 12), and prints one JSON line of kernel timings
+before its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -59,6 +61,9 @@ LONG_FRAME_BYTES = 16 * 1024 * 1024    # phase 9: compress_long_sharded
 LONG_PREFIX_BYTES = 4 * 1024 * 1024
 LONG_L19_BYTES = 2 * 1024 * 1024       # phase 9: the level-19 leg
 PZSTD_L19_BYTES = 2 * 1024 * 1024      # phase 10: level 19 and the decode
+CLI_L19_BYTES = 2 * 1024 * 1024        # phase 12: -19
+CLI_DICT_BYTES = 1024 * 1024           # phase 12: -D (its decoder is Python)
+CLI_PATCH_BYTES = 4 * 1024 * 1024      # phase 12: --patch-from
 DEVICE = "cuda"
 
 
@@ -1601,6 +1606,285 @@ def host_c_phase(dev, corpus: bytes, frame: bytes, streams: dict) -> None:
         + " (equal frames)", flush=True)
 
 
+def _cli_dictionary(content: bytes, dict_id: int) -> bytes:
+    """A zstd-format dictionary written by the port's write_dictionary:
+    `content`, a Huffman table over its bytes (+1 smoothing) and flat FSE
+    tables over the full code alphabets (repeat mode valid for every
+    code)."""
+    import numpy as np
+    from zstd_tpu_torch.constants import (LL_FSE_LOG, MAX_LL_CODE,
+                                          MAX_ML_CODE, ML_FSE_LOG,
+                                          OF_FSE_LOG)
+    from zstd_tpu_torch.dictionary import write_dictionary
+    from zstd_tpu_torch.format import fse, huffman
+    lit = np.bincount(np.frombuffer(content, np.uint8),
+                      minlength=256).astype(np.int64) + 1
+    huf = huffman.build_huf_ctable(lit, 255, huffman.HUF_TABLELOG_DEFAULT)
+
+    def flat(n: int, max_log: int):
+        hist = np.ones(n, np.int64)
+        log = fse.optimal_table_log(max_log, n, n - 1)
+        return fse.normalize_count(hist, log, n, n - 1,
+                                   use_low_prob_count=False), log
+    return write_dictionary(dict_id, content, huf, *flat(29, OF_FSE_LOG),
+                            *flat(MAX_ML_CODE + 1, ML_FSE_LOG),
+                            *flat(MAX_LL_CODE + 1, LL_FSE_LOG))
+
+
+def cli_phase(dev, corpus: bytes, root: str) -> None:
+    """Phase 12: the command line, `python -m zstd_tpu_torch.cli`.
+
+    As a command (a subprocess each): `--engine gpu -1 -c` of the 16 MiB
+    corpus equals pipeline.compress(corpus, level=1, checksum=True) in this
+    process, and `--engine gpu -d -c` of it gives back the corpus; the walls
+    beside those of three bare processes (the interpreter; `import torch`;
+    torch, the CUDA context and every kernel library loaded), whose
+    difference from the CLI's wall is its codec and I/O time. In process:
+    cli.main of the same two commands under torch.profiler launches
+    extract, fse_chain, huf_lane_kernel and exec_seq (launch counts zeroed
+    just before, read just after; profiler names checked). The host paths
+    at the sizes users run, each CLI output equal to the in-process call of
+    the same port function and decoded back to its input, MB/s of the CLI:
+    the async file path (-3 on a 16 MiB file), -19 on 2 MiB, -1 --long=27
+    on 16 MiB of tests/longcorpus.py, -T4, --rsyncable, --patch-from on
+    4 MiB (old = the corpus's first 4 MiB with 8 point mutations), -D (a
+    dictionary written by the port's write_dictionary, on 1 MiB: its
+    decoder is Python), --target-compressed-block-size 2048, --format lz4,
+    then -l and -t; no kernel launched on them."""
+    import io
+    import tempfile
+
+    import numpy as np
+    from longcorpus import long_corpus
+    from zstd_tpu_torch import _kernels, cli, dictionary, fileio_async
+    from zstd_tpu_torch import lz4frame, pipeline
+    from zstd_tpu_torch.device_decoder import device_decompress
+    from zstd_tpu_torch.format import codec
+    from zstd_tpu_torch.parallel import pzstd
+    from zstd_tpu_torch.params import get_cparams
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    mb = 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name: str) -> str:
+            return os.path.join(tmp, name)
+
+        def put(name: str, data: bytes) -> str:
+            with open(path(name), "wb") as f:
+                f.write(data)
+            return path(name)
+
+        def get(name: str) -> bytes:
+            with open(path(name), "rb") as f:
+                return f.read()
+
+        def proc(*args: str) -> tuple:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, *args], cwd=tmp, env=env,
+                               capture_output=True, timeout=300)
+            wall = time.perf_counter() - t0
+            assert r.returncode == 0, r.stderr.decode(errors="replace")
+            return r.stdout, wall
+
+        put("corpus.bin", corpus)
+        # ---- as a command ----
+        enc, t_enc = proc("-m", "zstd_tpu_torch.cli", "--engine", "gpu",
+                          "-1", "-c", "corpus.bin")
+        pipeline.compress(corpus, level=1, checksum=True, device=dev)  # warm
+        t0 = time.perf_counter()
+        want = pipeline.compress(corpus, level=1, checksum=True, device=dev)
+        t_enc_in = time.perf_counter() - t0
+        assert enc == want, "the CLI's --engine gpu -1 frame != " \
+            "pipeline.compress in process"
+        put("corpus.bin.zst", enc)
+        dec, t_dec = proc("-m", "zstd_tpu_torch.cli", "--engine", "gpu",
+                          "-d", "-c", "corpus.bin.zst")
+        assert dec == corpus, "the CLI's --engine gpu -d does not give " \
+            "back the corpus"
+        t0 = time.perf_counter()
+        assert device_decompress(enc, device=dev) == corpus
+        t_dec_in = time.perf_counter() - t0
+        _, t_py = proc("-c", "pass")
+        _, t_torch = proc("-c", "import torch")
+        _, t_libs = proc("-c", "import torch\n"
+                         "torch.zeros(1, device='cuda')\n"
+                         "from zstd_tpu_torch import _kernels\n"
+                         "for s in _kernels.SOURCES: _kernels.get(s)\n"
+                         "_kernels.host()\n")
+        print(f"CLI as a command, 16 MiB: --engine gpu -1 -c {t_enc:.3f} s "
+              f"({len(corpus) / t_enc / mb:.2f} MB/s, {len(enc)} B == "
+              f"pipeline.compress in process, {t_enc_in:.3f} s, "
+              f"{len(corpus) / t_enc_in / mb:.2f} MB/s); --engine gpu -d -c "
+              f"{t_dec:.3f} s ({len(corpus) / t_dec / mb:.2f} MB/s, == corpus;"
+              f" device_decompress in process {t_dec_in:.3f} s, "
+              f"{len(corpus) / t_dec_in / mb:.2f} MB/s)", flush=True)
+        print(f"  bare processes: the interpreter {t_py:.3f} s; it and import "
+              f"torch {t_torch:.3f} s; those, the CUDA context and the "
+              f"kernel libraries {t_libs:.3f} s (start-up {t_libs / t_enc:.3f}"
+              f" of the encode's wall); so the encode's codec and I/O "
+              f"{t_enc - t_libs:.3f} s, the decode's {t_dec - t_libs:.3f} s",
+              flush=True)
+
+        # ---- in process, under the profiler ----
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+
+        def both_ways():
+            assert cli.main(["--engine", "gpu", "-1", "-f", "-o",
+                             path("inproc.zst"), path("corpus.bin")]) == 0
+            assert cli.main(["--engine", "gpu", "-d", "-f", "-o",
+                             path("inproc.out"), path("inproc.zst")]) == 0
+
+        prof = profile_run(both_ways)
+        launches = dict(_kernels.LAUNCHES)
+        assert get("inproc.zst") == want and get("inproc.out") == corpus
+        seen = {}
+        for kern in ("extract_kernel", "fse_chain_kernel", "huf_lane_kernel",
+                     "exec_seq_kernel"):
+            seen[kern] = sum(v for k, v in prof["by_name"].items()
+                             if kern in k)
+            assert any(kern in k for k in prof["by_name"]), \
+                f"cli.main launched no {kern} (profiler)"
+        for k in ("extract", "fse_chain", "huf_decode", "exec_seq"):
+            assert launches[k] > 0, f"cli.main launched no {k}"
+        print(f"cli.main --engine gpu -1 then -d in process: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+              f"ms, launches {launches}; device ms by kernel " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in seen.items()), flush=True)
+
+        # ---- the host paths ----
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        rng = np.random.default_rng(8)
+        new = corpus[:CLI_PATCH_BYTES]
+        old = bytearray(new)
+        for at in rng.integers(0, len(old), 8):
+            old[int(at)] ^= 0x5A
+        old = bytes(old)
+        put("old.bin", old)
+        put("new.bin", new)
+        small = put("l19.bin", corpus[:CLI_L19_BYTES])
+        put("long.bin", long_corpus(CORPUS_BYTES))
+        put("dict.bin", corpus[:CLI_DICT_BYTES])
+        blob = _cli_dictionary(corpus[-65536:], 24680)
+        put("dict", blob)
+        dct = dictionary.load_dictionary(blob)
+        rlog = min(max(get_cparams(3, len(corpus)).window_log + 2, 19), 24)
+        async_calls = []
+        orig_async = fileio_async.compress_file_async
+
+        def counted(*a, **k):
+            async_calls.append(1)
+            return orig_async(*a, **k)
+
+        fileio_async.compress_file_async = counted
+        legs = (
+            ("async file path -3", ["-3", "-f", path("corpus.bin")],
+             "corpus.bin.zst", corpus,
+             lambda: (orig_async(path("corpus.bin"), path("ref.zst"),
+                                 level=3, checksum=True), get("ref.zst"))[1],
+             codec.decompress),
+            ("-19, 2 MiB", ["-19", "-f", "-o", path("l19.zst"), small],
+             "l19.zst", corpus[:CLI_L19_BYTES],
+             lambda: codec.compress(corpus[:CLI_L19_BYTES], level=19,
+                                    checksum=True), codec.decompress),
+            ("-1 --long=27, long corpus", ["-1", "--long=27", "-f", "-o",
+                                           path("long.zst"),
+                                           path("long.bin")],
+             "long.zst", get("long.bin"),
+             lambda: codec.compress(get("long.bin"), level=1, checksum=True,
+                                    window_log=27, long_mode=True),
+             codec.decompress),
+            ("-T4", ["-T4", "-f", "-o", path("t4.zst"), path("corpus.bin")],
+             "t4.zst", corpus,
+             lambda: pzstd.pzstd_compress(corpus, level=3, checksum=True,
+                                          workers=4), codec.decompress),
+            ("--rsyncable", ["--rsyncable", "-f", "-o", path("rs.zst"),
+                             path("corpus.bin")], "rs.zst", corpus,
+             lambda: pzstd.pzstd_compress(corpus, level=3, checksum=True,
+                                          workers=1, rsync_log=rlog),
+             codec.decompress),
+            ("--patch-from, 4 MiB", ["--patch-from", path("old.bin"), "-f",
+                                     "-o", path("patch.zst"),
+                                     path("new.bin")],
+             "patch.zst", new,
+             lambda: codec.compress_patch(new, old, level=3, checksum=True),
+             lambda b: codec.decompress_patch(b, old)),
+            ("-D, 1 MiB", ["-D", path("dict"), "-f", "-o", path("d.zst"),
+                           path("dict.bin")], "d.zst",
+             corpus[:CLI_DICT_BYTES],
+             lambda: dictionary.compress_with_dict(
+                 corpus[:CLI_DICT_BYTES], dct, level=3, checksum=True),
+             lambda b: dictionary.decompress_with_dict(b, dct)),
+            ("--target-compressed-block-size 2048",
+             ["--target-compressed-block-size", "2048", "-f", "-o",
+              path("tcb.zst"), path("corpus.bin")], "tcb.zst", corpus,
+             lambda: codec.compress(corpus, level=3, checksum=True,
+                                    target_cblock_size=2048),
+             codec.decompress),
+            ("--format lz4", ["--format", "lz4", "-f", "-o",
+                              path("c.lz4"), path("corpus.bin")],
+             "c.lz4", corpus,
+             lambda: lz4frame.compress_lz4(corpus, content_checksum=True),
+             lambda b: lz4frame.decompress_lz4(b)[0]),
+        )
+        try:
+            for label, argv, out, data, ref_fn, decode in legs:
+                t0 = time.perf_counter()
+                assert cli.main(argv) == 0, label
+                t_cli = time.perf_counter() - t0
+                got = get(out)
+                t0 = time.perf_counter()
+                ref = ref_fn()
+                t_ref = time.perf_counter() - t0
+                assert got == ref, f"{label}: the CLI's output != the " \
+                    "in-process call"
+                t0 = time.perf_counter()
+                assert decode(got) == data, f"{label}: no round trip"
+                t_back = time.perf_counter() - t0
+                print(f"CLI {label}: {len(data)} B -> {len(got)} B, ratio "
+                      f"{len(data) / len(got):.4f}, {len(data) / t_cli / mb:.2f}"
+                      f" MB/s ({t_cli:.3f} s; in process {t_ref:.3f} s, the "
+                      f"same bytes; decoded back in {t_back:.3f} s)",
+                      flush=True)
+        finally:
+            fileio_async.compress_file_async = orig_async
+        assert async_calls == [1], "-3 on a 16 MiB file skipped the async " \
+            "file path"
+        listing = io.StringIO()
+        zsts = [path(n) for n in ("corpus.bin.zst", "l19.zst", "t4.zst",
+                                  "rs.zst", "tcb.zst")]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(listing):
+            assert cli.main(["-l", *zsts]) == 0
+        t_list = time.perf_counter() - t0
+        rows = listing.getvalue().splitlines()
+        # the async path's frame is a stream's: its size is not in it
+        assert len(rows) == 6 and " unknown " in rows[1] \
+            and f" {len(corpus)} " in rows[5] \
+            and all("XXH64" in r for r in rows[1:]), rows
+        t0 = time.perf_counter()
+        assert cli.main(["-t", *zsts]) == 0
+        t_test = time.perf_counter() - t0
+        bad = bytearray(get("tcb.zst"))
+        bad[len(bad) // 2] ^= 0xFF
+        put("bad.zst", bytes(bad))
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            assert cli.main(["-t", path("bad.zst")]) == 1
+        tested = len(corpus) * 4 + CLI_L19_BYTES
+        print(f"CLI -l of 5 frames: {t_list:.3f} s; -t of them: "
+              f"{tested / t_test / mb:.2f} MB/s ({t_test:.3f} s); -t of a "
+              f"corrupted frame exits 1 ({err.getvalue().strip()[:60]})",
+              flush=True)
+        for line in rows:
+            print(f"  {line}")
+        launches = dict(_kernels.LAUNCHES)
+        assert not any(launches.values()), \
+            f"the host paths launched {launches}"
+
+
 def main() -> int:
     signal.alarm(1150)             # hard deadline: the default action exits
     import numpy as np
@@ -1835,6 +2119,9 @@ def main() -> int:
 
     # ---- 11. the host C against the host halves' plain versions ------------
     host_c_phase(dev, corpus, frame, streams)
+
+    # ---- 12. the command line ----------------------------------------------
+    cli_phase(dev, corpus, root)
     print(card_line(), flush=True)       # again, beside the numbers below
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

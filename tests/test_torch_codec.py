@@ -29,6 +29,7 @@ from zstd_tpu.format import frame as jframe
 from zstd_tpu.format import lazy as jlazy
 from zstd_tpu.format import opt as jopt
 from zstd_tpu.native import get_native
+from tests.refnative import reference_native
 from zstd_tpu_torch import native as tnative
 from zstd_tpu_torch import params as tparams
 from zstd_tpu_torch.errors import ZstdError
@@ -50,7 +51,8 @@ BLOCKS = ((0, 0, 131_072), (0, 131_072, 262_144),
 
 @pytest.fixture(scope="module", autouse=True)
 def _native():
-    assert get_native() is not None, "zstd_tpu's C library is not built"
+    assert reference_native() is not None, \
+        "zstd_tpu's C library is not built"
 
 
 @pytest.mark.parametrize("name", sorted(INPUTS))

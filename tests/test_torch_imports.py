@@ -34,7 +34,8 @@ def test_import_leaves_out_jax_and_zstd_tpu():
               "parallel.ldm_sharded", "parallel.multihost", "parallel.pzstd",
               "native", "ops.ldm", "format.ldm", "format.opt",
               "format.frame", "format.lazy", "format.split", "format.block",
-              "format.codec"):
+              "format.codec", "cli", "trace", "streaming", "fileio_async",
+              "rsync", "lz4frame", "dictionary"):
         assert f"zstd_tpu_torch.{m}" in modules
 
 
@@ -52,6 +53,7 @@ def test_host_c_is_whole_and_reads_no_environment():
     from zstd_tpu_torch import _kernels
     host = sorted(p.name for p in (PORT / "csrc" / "host").glob("*.c"))
     assert [s.split("/")[1] for s in _kernels.HOST_SOURCES] == host
+    assert "host/lz4.c" in _kernels.HOST_SOURCES
     for name in host:
         text = (PORT / "csrc" / "host" / name).read_text()
         assert "getenv" not in text, name
@@ -65,6 +67,47 @@ def test_host_codec_imports_no_torch():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("argv", (
+    ["-3", "-c", "in.bin"], ["-d", "-c", "in.bin.zst"],
+    ["--format", "lz4", "-c", "in.bin"],
+    ["-T2", "--rsyncable", "-o", "out.zst", "in.bin"]),
+    ids=("compress", "decompress", "lz4", "rsyncable"))
+def test_cli_host_paths_import_no_torch(tmp_path, argv):
+    """`python -m zstd_tpu_torch.cli` on a host path runs without torch."""
+    from zstd_tpu_torch.format import codec
+    data = bytes(range(256)) * 400
+    (tmp_path / "in.bin").write_bytes(data)
+    (tmp_path / "in.bin.zst").write_bytes(codec.compress(data))
+    code = ("import runpy, sys\n"
+            f"sys.argv = ['zstd'] + {argv!r}\n"
+            "try:\n"
+            "    runpy.run_module('zstd_tpu_torch.cli', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "sys.exit(rc if rc else 2 if 'torch' in sys.modules else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_cli_engine_gpu_imports_torch_and_needs_a_card(tmp_path):
+    """The device path imports torch and runs on the card: without one,
+    `python -m zstd_tpu_torch.cli --engine gpu -1 f` reports the missing
+    device and exits 1; nothing falls back to the CPU."""
+    (tmp_path / "f").write_bytes(b"abc" * 1000)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, "-m", "zstd_tpu_torch.cli",
+                        "--engine", "gpu", "-1", "f"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 1
+    assert "no CUDA device" in r.stderr
+    assert not (tmp_path / "f.zst").exists()
 
 
 def test_no_card_raises(monkeypatch):

@@ -10,6 +10,7 @@ import pytest
 import torch.distributed as dist
 
 from tests.bigcorpus import big_corpus
+from tests.refnative import reference_native
 from tests.torchdist import run_groups
 from zstd_tpu.parallel import multihost as jmh
 from zstd_tpu_torch.parallel import multihost
@@ -29,6 +30,7 @@ def gathered(tmp_path_factory):
 
 
 def test_compress_my_shard_takes_rank_and_world_from_the_group(gathered):
+    assert reference_native() is not None   # zstd_tpu's frames need its C
     got = gathered[2]["pzstd"]
     want = [jmh.compress_my_shard(PZSTD, level=3, chunk_size=64 * 1024,
                                   process_index=i, process_count=2,

@@ -16,6 +16,7 @@ import sys
 import pytest
 
 from tests.bigcorpus import big_corpus
+from tests.refnative import reference_native
 from zstd_tpu.format import codec as jcodec
 from zstd_tpu.parallel import multihost as jmh
 from zstd_tpu_torch.format import codec as tcodec
@@ -27,6 +28,13 @@ CHUNK = 64 * 1024
 SHARDS = ((0, 1), (0, 2), (1, 2), (2, 3))
 LEVELS = (1, 3, 19)
 _WANT = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _native():
+    """zstd_tpu's frames are those of its C parsers."""
+    assert reference_native() is not None, \
+        "zstd_tpu's C library is not built"
 
 
 def _want(level: int, index: int, count: int) -> bytes:

@@ -5,8 +5,9 @@ only those phases changed.
 
     python3 tools/torch_smoke_phases.py ldm pzstd
 
-Phases: "ldm" (phase 9, chip_smoke.ldm_phase) and "pzstd" (phase 10,
-chip_smoke.pzstd_phase, on the 16 MiB big_corpus). Prints the card line
+Phases: "ldm" (phase 9, chip_smoke.ldm_phase), "pzstd" (phase 10,
+chip_smoke.pzstd_phase, on the 16 MiB big_corpus) and "cli" (phase 12,
+chip_smoke.cli_phase, on the same corpus). Prints the card line
 first and last, and each phase's output; exits non-zero if a check fails.
 """
 
@@ -39,6 +40,9 @@ def main(argv: list[str]) -> int:
             chip_smoke.ldm_phase(dev)
         elif phase == "pzstd":
             chip_smoke.pzstd_phase(big_corpus(chip_smoke.CORPUS_BYTES))
+        elif phase == "cli":
+            chip_smoke.cli_phase(dev, big_corpus(chip_smoke.CORPUS_BYTES),
+                                 ROOT)
         else:
             raise SystemExit(f"unknown phase {phase!r}")
     print(chip_smoke.card_line(), flush=True)

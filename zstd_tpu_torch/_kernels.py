@@ -28,8 +28,8 @@ SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu",
            "lazy_resolve.cu", "xla_walk.cu", "ldm_fingerprint.cu",
            "ldm_lookback.cu")
 HOST_SOURCES = ("host/cblock.c", "host/decode.c", "host/encode.c",
-                "host/fast.c", "host/huf.c", "host/lazy.c", "host/opt.c",
-                "host/row.c", "host/xxh64.c")
+                "host/fast.c", "host/huf.c", "host/lazy.c", "host/lz4.c",
+                "host/opt.c", "host/row.c", "host/xxh64.c")
 HOST_LIB = "host"
 
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
@@ -113,6 +113,14 @@ _HOST_SIGNATURES = {
     "zt_decompress_blocks": (_I64, [_P, _P, _L, _P, _L, _L, _L, _L, _P]),
     "zt_decode_sequences": (_I64, [_P, _P, _L, _P, _P, _P, _L]),
     "zt_xxh64": (ctypes.c_uint64, [_P, ctypes.c_size_t, ctypes.c_uint64]),
+    "zt_xxh64_state_size": (ctypes.c_size_t, []),
+    "zt_xxh64_reset": (None, [_P, ctypes.c_uint64]),
+    "zt_xxh64_update": (None, [_P, _P, ctypes.c_size_t]),
+    "zt_xxh64_digest": (ctypes.c_uint64, [_P]),
+    # the lz4 block codec and XXH32 (lz4.c)
+    "zt_lz4_block_compress": (_I64, [_P, _I64, _P, _I64]),
+    "zt_lz4_block_decompress": (_I64, [_P, _I64, _P, _I64, _I64]),
+    "zt_xxh32": (ctypes.c_uint32, [_P, _I64, ctypes.c_uint32]),
     # the entropy planning and encoders (huf.c, encode.c)
     "zt_fse_normalize": (_I64, [_P, _I, _L, _I, _I, _P]),
     "zt_fse_write_ncount": (_I64, [_P, _I, _I, _P, _L]),

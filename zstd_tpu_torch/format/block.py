@@ -9,7 +9,7 @@ ZSTD_deriveBlockSplits:4118; lib/decompress/zstd_decompress_block.c
 ZSTD_decompressBlock_internal + ZSTD_execSequence:1001). Left out: the
 external sequence producer (zstd_tpu's is None unless registered), the
 ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER overrides (their defaults are
-constants) and the target block size (superblock) pieces. The device decoder
+constants). The device decoder
 sends a frame whose blocks the device cannot take to the decoder here.
 """
 
@@ -17,18 +17,23 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from ..constants import (BT_COMPRESSED, BT_RAW, BT_RLE, MIN_MATCH,
                          REPCODE_INIT)
 from ..errors import Corruption
 from . import opt
 from .ldm import find_sequences_ldm
-from .literals import (HufDecodeState, HufEntropyState, _min_gain,
-                       compress_literals, decode_literals)
+from . import huffman
+from .literals import (HufDecodeState, HufEntropyState, HufRepeat, _min_gain,
+                       build_region_table, compress_literals,
+                       compress_literals_seeded, decode_literals)
 from .matchfinder import resolve_offset, update_reps
 from .sequences import (FseDecodeState, FseEntropyState, _EmitRawBlock,
                         decode_sequences, parse_sequences_section,
                         write_sequences_section)
-from .split import segment_content_len, slice_seqstore, split_points
+from .split import (make_estimator, segment_content_len, slice_seqstore,
+                    split_points, target_cost_cum)
 
 
 @dataclasses.dataclass
@@ -134,7 +139,8 @@ def _find_block_sequences(full, block_start, block_end, window_low, state,
 
 
 def compress_block_pieces(full, block_start, block_end, window_low, state,
-                          cparams, ldm_ctx=None):
+                          cparams, ldm_ctx=None,
+                          target_cblock_size: int | None = None):
     """Compress one block region into one-or-more blocks via cost-driven
     splitting of its seqstore (ZSTD_deriveBlockSplits analog; format/split.py).
 
@@ -199,8 +205,112 @@ def compress_block_pieces(full, block_start, block_end, window_low, state,
              dataclasses.replace(state, huf=whole_huf, fse=whole_fse,
                                  reps=new_reps))
 
-    if n < 32768:
+    if n < 32768 and not target_cblock_size:
         return whole
+    if target_cblock_size:
+        # superblock mode: greedy EXACT sub-block sizing — each sub-block
+        # is proposed from the estimator, then actually encoded and
+        # resized once if its true compressed size strays from the target
+        # (ZSTD_compressSubBlock's exact sub-block sizer role,
+        # zstd's lib/compress/zstd_compress_superblock.c:263,506-529;
+        # table modes are re-decided per sub-block by the entropy states).
+        est = make_estimator(seqs)
+        cum = np.concatenate([[0], target_cost_cum(est)])
+        tgt_bits = max(target_cblock_size, 1024) * 8
+        nb = seqs.nb_seq
+        if nb == 0:
+            return whole
+        # true superblock sections (zstd_compress_superblock.c:263,
+        # 506-529 role): ONE Huffman table over the whole region's
+        # literals; the first piece emits its description, later pieces
+        # are treeless against it — small pieces' literals stay
+        # compressible at zero per-piece table cost (per-piece tables
+        # previously forced ~all pieces to raw literals at 1-4 KB
+        # targets). The table is built over ALL region literals, so
+        # treeless coverage is guaranteed for every piece.
+        region = build_region_table(seqs.literals)
+        emitted = [False]
+        if (region is not None and state.huf.repeat == HufRepeat.VALID
+                and state.huf.ctable is not None):
+            # a prior region's table may already cover this region's
+            # literals — then every piece can go treeless immediately
+            arr = np.frombuffer(seqs.literals, dtype=np.uint8)
+            cnt = np.bincount(arr, minlength=256).astype(np.int64)
+            if huffman.huf_validate_ctable(state.huf.ctable, cnt,
+                                           int(arr.max())):
+                region = (state.huf.ctable, b"")
+                emitted[0] = True
+
+        region_ref = [region]
+        _LBT_COMPRESSED = 2
+
+        def encode_seeded(sub_, st_, emitted_now):
+            """Literals against the region table (fallback: the plain
+            per-piece path); sequences chained as before. Returns
+            (payload, next_huf, next_fse, did_emit_table, plain_table):
+            plain_table flags a fallback piece that emitted its OWN
+            table — committing one invalidates region-treeless for the
+            rest of the region (the decoder's 'previous table' moved)."""
+            if region_ref[0] is not None:
+                got = compress_literals_seeded(
+                    sub_.literals, region_ref[0][0], region_ref[0][1],
+                    not emitted_now, strategy)
+                if got is not None:
+                    lit_s, did_emit = got
+                    seq_s, nf = write_sequences_section(sub_, st_.fse,
+                                                        strategy)
+                    nh = HufEntropyState(region_ref[0][0], HufRepeat.VALID)
+                    return lit_s + seq_s, nh, nf, did_emit, False
+            p_, nh, nf = encode(sub_, st_, False)
+            plain_tab = bool(p_) and (p_[0] & 3) == _LBT_COMPRESSED
+            return p_, nh, nf, False, plain_tab
+
+        pieces = []
+        st = state
+        total = 0
+        a = 0
+        while a < nb:
+            b = int(np.searchsorted(cum, cum[a] + tgt_bits, side="left"))
+            b = min(max(b, a + 1), nb)
+
+            def try_piece(bb):
+                last_ = bb == nb
+                sub_ = slice_seqstore(seqs, a, bb, last_)
+                clen_ = segment_content_len(seqs, a, bb, last_, n, total)
+                payload_, nh, nf, did, ptab = encode_seeded(sub_, st,
+                                                            emitted[0])
+                return payload_, nh, nf, clen_, did, ptab
+
+            try:
+                payload, next_huf, next_fse, clen, did, ptab = try_piece(b)
+                actual = len(payload)
+                if actual > target_cblock_size * 5 // 4 and b - a > 4:
+                    b2 = a + max((b - a) * target_cblock_size
+                                 * 8 // (actual * 8), 4)
+                    if b2 < b:
+                        b = b2
+                        payload, next_huf, next_fse, clen, did, ptab = \
+                            try_piece(b)
+                elif (actual < target_cblock_size // 2 and b < nb):
+                    b2 = min(a + max((b - a) * target_cblock_size
+                                     * 8 // (max(actual, 1) * 8), b - a + 1),
+                             nb)
+                    if b2 > b:
+                        b = b2
+                        payload, next_huf, next_fse, clen, did, ptab = \
+                            try_piece(b)
+            except _EmitRawBlock:
+                return whole
+            if len(payload) >= clen:
+                return whole
+            pieces.append((payload, BT_COMPRESSED, clen))
+            st = dataclasses.replace(st, huf=next_huf, fse=next_fse)
+            emitted[0] = emitted[0] or did
+            if ptab:
+                region_ref[0] = None
+            total += clen
+            a = b
+        return pieces, dataclasses.replace(st, reps=new_reps)
     if strategy >= 7:
         # btopt class: EXACT recursive dyadic split search with entropy-
         # state chaining (zstd accepts splits from fresh-table estimates,
@@ -241,7 +351,7 @@ def compress_block_pieces(full, block_start, block_end, window_low, state,
             return whole
         bounds = [a for a, _ in res[2]] + [nb]
     else:
-        pts = split_points(seqs)
+        pts = split_points(seqs, target_cblock_size=target_cblock_size)
         if not pts:
             return whole
         bounds = [0] + pts + [seqs.nb_seq]
@@ -262,8 +372,10 @@ def compress_block_pieces(full, block_start, block_end, window_low, state,
         pieces.append((payload, BT_COMPRESSED, clen))
         st = dataclasses.replace(st, huf=next_huf, fse=next_fse)
         total += clen
-    if sum(len(p) for p, _, _ in pieces) >= len(whole_payload):
-        # entropy-driven splitting must pay for itself
+    if (not target_cblock_size
+            and sum(len(p) for p, _, _ in pieces) >= len(whole_payload)):
+        # entropy-driven splitting must pay for itself; target-size
+        # (superblock) splitting buys latency instead and keeps the split
         return whole
     return pieces, dataclasses.replace(st, reps=new_reps)
 

@@ -1,20 +1,20 @@
 """Frame headers, the host frame encoder, the host frame decoder and
 skippable frames.
 
-Copy of write_frame_header, FrameHeader, parse_frame_header, is_skippable,
-_split_points, _finish_c_frame, compress_frame, decompress_frame and
-_decompress_frame_native in zstd_tpu/format/frame.py (zstd's
-lib/compress/zstd_compress.c ZSTD_writeFrameHeader:4626 and
-ZSTD_compress_frameChunk:4527, lib/decompress/zstd_decompress.c
-ZSTD_getFrameHeader_advanced:447 and ZSTD_decompressFrame:951), without a
-window prefix (--patch-from), a target block size or an external sequence
-producer. compress_frame runs the whole-frame C paths of csrc/host/cblock.c
-where zstd_tpu does (ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER at their
-defaults), else the per-block loop. decompress_frame runs the port's copy
-of native/decode.c (csrc/host/decode.c) as zstd_tpu's does, and its Python
-block loop where that C declines; decompress_frame_plain is that Python
-branch alone. _split_points takes the C of csrc/host/encode.c at its
-default threshold, as zstd_tpu's does.
+Copy of zstd_tpu/format/frame.py (zstd's lib/compress/zstd_compress.c
+ZSTD_writeFrameHeader:4626 and ZSTD_compress_frameChunk:4527,
+lib/decompress/zstd_decompress.c ZSTD_getFrameHeader_advanced:447 and
+ZSTD_decompressFrame:951, and the inspection helpers of zstd.h), with the
+window prefix (--patch-from), the target block size (superblock) and the
+trace progression counters, without an external sequence producer.
+compress_frame runs the whole-frame C paths of csrc/host/cblock.c where
+zstd_tpu does (ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER at their
+defaults; none with a prefix or a target block size), else the per-block
+loop. decompress_frame runs the port's copy of native/decode.c
+(csrc/host/decode.c) as zstd_tpu's does, and its Python block loop where
+that C declines; decompress_frame_plain is that Python branch alone.
+_split_points takes the C of csrc/host/encode.c at its default threshold,
+as zstd_tpu's does.
 """
 
 from __future__ import annotations
@@ -25,10 +25,11 @@ import numpy as np
 
 from .. import native
 from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_COMPRESSED,
-                         BT_RAW, BT_RESERVED, BT_RLE, SKIPPABLE_MAGIC_MAX,
-                         SKIPPABLE_MAGIC_MIN, WINDOWLOG_LIMIT_DEFAULT,
-                         ZSTD_MAGIC)
+                         BT_RAW, BT_RESERVED, BT_RLE, DICT_MAGIC,
+                         SKIPPABLE_MAGIC_MAX, SKIPPABLE_MAGIC_MIN,
+                         WINDOWLOG_LIMIT_DEFAULT, ZSTD_MAGIC)
 from ..errors import Corruption, ZstdError, ZstdErrorCode
+from ..trace import GLOBAL_PROGRESSION
 from ..xxhash64 import content_checksum
 from .block import (BlockCState, BlockDState, compress_block,
                     compress_block_pieces, decompress_block)
@@ -143,10 +144,13 @@ def _split_points_plain(full: np.ndarray, bs: int, be: int,
 
 def _finish_c_frame(out: bytearray, blocks: bytes, checksum: bool,
                     data: bytes) -> bytes:
-    """Shared tail of the whole-frame C paths: append blocks + checksum."""
+    """Shared tail of the whole-frame C paths: append blocks + checksum
+    and record the progression."""
     out += blocks
     if checksum:
         out += content_checksum(data).to_bytes(4, "little")
+    GLOBAL_PROGRESSION.ingested = GLOBAL_PROGRESSION.consumed = len(data)
+    GLOBAL_PROGRESSION.produced = GLOBAL_PROGRESSION.flushed = len(out)
     return bytes(out)
 
 
@@ -213,16 +217,25 @@ def _c_frame(data: bytes, cparams) -> bytes | None:
 
 
 def compress_frame(data: bytes, cparams, checksum: bool = False,
-                   long_mode: bool = False, ldm_state=None) -> bytes:
+                   long_mode: bool = False, prefix: bytes = b"",
+                   target_cblock_size: int | None = None,
+                   ldm_state=None) -> bytes:
     """One full zstd frame (the shape of ZSTD_compressContinue_internal).
 
     long_mode: long-distance matching through the host LdmState.
+    prefix: raw window prefix (ZSTD_CCtx_refPrefix / --patch-from analog):
+    matches may reference it, but it is not emitted; the decoder must be
+    given the same prefix.
+    target_cblock_size: aim each emitted block's compressed size at this
+    many bytes (ZSTD_c_targetCBlockSize / superblock analog).
     ldm_state: a pre-built long-distance matcher state (the sharded
     parallel/ldm_sharded.ShardedLdmState) instead of the host LdmState;
     implies long matching."""
     n = len(data)
     window_log = cparams.window_log
-    out = bytearray(write_frame_header(n, window_log, checksum))
+    out = bytearray(write_frame_header(
+        n, window_log, checksum,
+        window_must_cover=(len(prefix) + n) if prefix else None))
 
     if n == 0:
         out += (1 | (BT_RAW << 1) | (0 << 3)).to_bytes(3, "little")
@@ -230,24 +243,34 @@ def compress_frame(data: bytes, cparams, checksum: bool = False,
             out += content_checksum(b"").to_bytes(4, "little")
         return bytes(out)
 
-    if not long_mode and ldm_state is None and n >= 128:
+    if (not long_mode and not prefix and ldm_state is None
+            and not target_cblock_size and n >= 128):
         blocks = _c_frame(data, cparams)
         if blocks is not None:
             return _finish_c_frame(out, blocks, checksum, data)
 
-    full = np.frombuffer(data, dtype=np.uint8)
+    p0 = len(prefix)
+    full = np.frombuffer(prefix + data, dtype=np.uint8)
     window_size = 1 << window_log
     block_size = min(window_size, BLOCK_MAX_SIZE)
     state = BlockCState()
     ldm_ctx = ldm_state
     if long_mode and ldm_ctx is None:
         ldm_ctx = LdmState(full, window_log)
-    # cost-driven seqstore splitting at the slow-strategy levels
-    # (ZSTD_deriveBlockSplits analog, format/split.py); the cheap
-    # histogram-divergence pre-split (_split_points, zstd_preSplit.c analog)
-    # applies at every level
-    split_full = cparams.strategy >= 5
-    pos = 0
+        if p0:
+            ldm_ctx.insert_upto(p0)
+    prog = GLOBAL_PROGRESSION
+    prog.ingested = n
+    prog.consumed = 0
+    prog.produced = len(out)
+    prog.flushed = 0
+    # cost-driven seqstore splitting at the slow-strategy levels and under a
+    # target block size (ZSTD_deriveBlockSplits analog, format/split.py); the
+    # cheap histogram-divergence pre-split (_split_points, zstd_preSplit.c
+    # analog) applies at every level
+    split_full = cparams.strategy >= 5 or bool(target_cblock_size)
+    pos = p0
+    n += p0
     while pos < n:
         end = min(pos + block_size, n)
         if end - pos >= 32768:
@@ -267,7 +290,8 @@ def compress_frame(data: bytes, cparams, checksum: bool = False,
         window_low = max(0, end - window_size)
         if split_full:
             pieces, state = compress_block_pieces(
-                full, pos, end, window_low, state, cparams, ldm_ctx=ldm_ctx)
+                full, pos, end, window_low, state, cparams, ldm_ctx=ldm_ctx,
+                target_cblock_size=target_cblock_size)
         else:
             payload, btype, state = compress_block(
                 full, pos, end, window_low, state, cparams, ldm_ctx=ldm_ctx)
@@ -281,6 +305,8 @@ def compress_frame(data: bytes, cparams, checksum: bool = False,
             out += bh.to_bytes(3, "little")
             out += payload
         pos = end
+        prog.consumed = pos - p0
+        prog.produced = prog.flushed = len(out)
     if checksum:
         out += content_checksum(data).to_bytes(4, "little")
     return bytes(out)
@@ -345,14 +371,22 @@ def _frame_start(data: bytes, pos: int, window_log_max: int
     return hdr, pos + hdr.header_size
 
 
-def _decompress_frame_native(data: bytes, pos: int, hdr: FrameHeader):
-    """The block decoder in C over a preallocated window buffer. Returns
-    (content, end_pos), or None where zstd_tpu hands the frame to its Python
-    decoder: a window above 2^27 with no content size, or any block the C
-    declines."""
+def decompress_frame_prefix(data: bytes, pos: int, prefix: bytes,
+                            window_log_max: int = 31) -> tuple[bytes, int]:
+    """Decode one frame whose window may reference `prefix` (--patch-from)."""
+    return decompress_frame(data, pos, window_log_max, prefix=prefix)
+
+
+def _decompress_frame_native(data: bytes, pos: int, hdr: FrameHeader,
+                             prefix: bytes):
+    """The block decoder in C over a preallocated window buffer that starts
+    with `prefix`. Returns (content, end_pos), or None where zstd_tpu hands
+    the frame to its Python decoder: a window above 2^27 with no content
+    size, or any block the C declines."""
+    p0 = len(prefix)
     window = hdr.window_size or BLOCK_MAX_SIZE
     if hdr.frame_content_size is not None:
-        buf = np.empty(hdr.frame_content_size + BLOCK_MAX_SIZE,
+        buf = np.empty(p0 + hdr.frame_content_size + BLOCK_MAX_SIZE,
                        dtype=np.uint8)
     else:
         # unknown content size: a ring buffer that flushes what falls out of
@@ -361,7 +395,9 @@ def _decompress_frame_native(data: bytes, pos: int, hdr: FrameHeader):
         # go to the fully buffered Python decoder
         if window > (1 << 27):
             return None
-        buf = np.empty(2 * window + 2 * BLOCK_MAX_SIZE, dtype=np.uint8)
+        buf = np.empty(p0 + 2 * window + 2 * BLOCK_MAX_SIZE, dtype=np.uint8)
+    if p0:
+        buf[:p0] = np.frombuffer(prefix, dtype=np.uint8)
     flushed: list[bytes] = []
     block_max = min(window, BLOCK_MAX_SIZE)
     if hdr.single_segment and hdr.frame_content_size is not None:
@@ -383,12 +419,12 @@ def _decompress_frame_native(data: bytes, pos: int, hdr: FrameHeader):
         if hdr.frame_content_size is not None:
             # the whole frame in C: block headers and dispatch too
             res = native.decompress_blocks(
-                ctx, data, pos, buf, 0, hdr.window_size or (1 << 62),
+                ctx, data, pos, buf, p0, hdr.window_size or (1 << 62),
                 block_max)
             if res is None or res[0] != hdr.frame_content_size:
                 return None
-            return checked(buf[:res[0]].tobytes(), pos + res[1])
-        out_pos = 0
+            return checked(buf[p0 : p0 + res[0]].tobytes(), pos + res[1])
+        out_pos = p0
         last = False
         while not last:
             if out_pos + BLOCK_MAX_SIZE > len(buf):
@@ -433,34 +469,37 @@ def _decompress_frame_native(data: bytes, pos: int, hdr: FrameHeader):
                 pos += bsize
             else:
                 return None
-        return checked(b"".join(flushed) + buf[:out_pos].tobytes(), pos)
+        whole = b"".join(flushed) + buf[:out_pos].tobytes()
+        return checked(whole[p0:], pos)
     finally:
         native.dctx_free(ctx)
 
 
 def decompress_frame(data: bytes, pos: int,
-                     window_log_max: int = WINDOWLOG_LIMIT_DEFAULT
-                     ) -> tuple[bytes, int]:
-    """Decode one zstd frame starting at data[pos:]; returns (content, end)."""
+                     window_log_max: int = WINDOWLOG_LIMIT_DEFAULT,
+                     prefix: bytes = b"") -> tuple[bytes, int]:
+    """Decode one zstd frame starting at data[pos:]; returns (content, end).
+    prefix: the raw window prefix the frame was compressed against."""
     hdr, pos = _frame_start(data, pos, window_log_max)
-    fast = _decompress_frame_native(data, pos, hdr)
+    fast = _decompress_frame_native(data, pos, hdr, prefix)
     if fast is not None:
         return fast
-    return _decompress_blocks(data, pos, hdr)
+    return _decompress_blocks(data, pos, hdr, prefix)
 
 
 def decompress_frame_plain(data: bytes, pos: int,
-                           window_log_max: int = WINDOWLOG_LIMIT_DEFAULT
-                           ) -> tuple[bytes, int]:
+                           window_log_max: int = WINDOWLOG_LIMIT_DEFAULT,
+                           prefix: bytes = b"") -> tuple[bytes, int]:
     """The Python branch of decompress_frame."""
     hdr, pos = _frame_start(data, pos, window_log_max)
-    return _decompress_blocks(data, pos, hdr)
+    return _decompress_blocks(data, pos, hdr, prefix)
 
 
-def _decompress_blocks(data: bytes, pos: int,
-                       hdr: FrameHeader) -> tuple[bytes, int]:
+def _decompress_blocks(data: bytes, pos: int, hdr: FrameHeader,
+                       prefix: bytes) -> tuple[bytes, int]:
     """The Python block loop of decompress_frame, from the first block."""
-    out = bytearray()
+    out = bytearray(prefix)
+    p0 = len(prefix)
     state = BlockDState()
     block_max = min(hdr.window_size or BLOCK_MAX_SIZE, BLOCK_MAX_SIZE)
     if hdr.single_segment and hdr.frame_content_size is not None:
@@ -497,19 +536,20 @@ def _decompress_blocks(data: bytes, pos: int,
             state = decompress_block(data[pos : pos + bsize], out, window_low,
                                      state, block_max)
             pos += bsize
-    if hdr.frame_content_size is not None and len(out) != hdr.frame_content_size:
-        raise Corruption(
-            f"content size mismatch: {len(out)} != {hdr.frame_content_size}")
+    if hdr.frame_content_size is not None and \
+            len(out) - p0 != hdr.frame_content_size:
+        raise Corruption(f"content size mismatch: {len(out) - p0} != "
+                         f"{hdr.frame_content_size}")
     if hdr.checksum_flag:
         if pos + 4 > len(data):
             raise ZstdError(ZstdErrorCode.srcSize_wrong, "missing checksum")
         expect = int.from_bytes(data[pos : pos + 4], "little")
         pos += 4
-        got = content_checksum(bytes(out))
+        got = content_checksum(bytes(out[p0:]))
         if got != expect:
             raise ZstdError(ZstdErrorCode.checksum_wrong,
                             f"checksum 0x{got:08X} != 0x{expect:08X}")
-    return bytes(out), pos
+    return bytes(out[p0:]), pos
 
 
 def is_skippable(data: bytes, pos: int) -> bool:
@@ -517,3 +557,86 @@ def is_skippable(data: bytes, pos: int) -> bool:
         return False
     magic = int.from_bytes(data[pos : pos + 4], "little")
     return SKIPPABLE_MAGIC_MIN <= magic <= SKIPPABLE_MAGIC_MAX
+
+
+def write_skippable_frame(user_data: bytes, variant: int = 0) -> bytes:
+    """ZSTD_writeSkippableFrame (magic 0x184D2A50 + variant)."""
+    if not 0 <= variant <= 15:
+        raise ZstdError(ZstdErrorCode.parameter_outOfBound,
+                        "skippable variant 0-15")
+    return ((SKIPPABLE_MAGIC_MIN + variant).to_bytes(4, "little")
+            + len(user_data).to_bytes(4, "little") + user_data)
+
+
+# --------------------------------------------------------------------------
+# Frame inspection helpers (zstd.h's ZSTD_compressBound,
+# ZSTD_getFrameContentSize, ZSTD_findFrameCompressedSize, ZSTD_isFrame,
+# ZSTD_getDictID_fromFrame / _fromDict)
+# --------------------------------------------------------------------------
+
+def compress_bound(src_size: int) -> int:
+    """Worst-case compressed size (zstd.h:269's ZSTD_COMPRESSBOUND: srcSize
+    + srcSize/256 + a small-block margin) plus the frame envelope this
+    encoder writes."""
+    margin = ((128 << 10) - src_size) >> 11 if src_size < (128 << 10) else 0
+    return src_size + (src_size >> 8) + margin + 22
+
+
+def is_frame(data: bytes, pos: int = 0) -> bool:
+    """ZSTD_isFrame: zstd magic or a skippable-frame magic at pos."""
+    if len(data) < pos + 4:
+        return False
+    magic = int.from_bytes(data[pos : pos + 4], "little")
+    return magic == ZSTD_MAGIC or (magic & 0xFFFFFFF0) == 0x184D2A50
+
+
+def get_frame_content_size(data: bytes, pos: int = 0) -> int | None:
+    """ZSTD_getFrameContentSize: decompressed size declared by the frame
+    header at pos, None when unknown (no FCS field); skippable frames
+    report 0. Raises on non-frames (the _ERROR return analog)."""
+    if is_skippable(data, pos):
+        return 0
+    return parse_frame_header(data[pos:], 31).frame_content_size
+
+
+def find_frame_compressed_size(data: bytes, pos: int = 0) -> int:
+    """ZSTD_findFrameCompressedSize: total byte length of the frame
+    starting at pos (header + blocks + checksum, or skippable body)."""
+    if is_skippable(data, pos):
+        if len(data) < pos + 8:
+            raise ZstdError(ZstdErrorCode.srcSize_wrong, "truncated skippable")
+        return 8 + int.from_bytes(data[pos + 4 : pos + 8], "little")
+    hdr = parse_frame_header(data[pos:], 31)
+    p = pos + hdr.header_size
+    last = False
+    while not last:
+        if p + 3 > len(data):
+            raise ZstdError(ZstdErrorCode.srcSize_wrong,
+                            "truncated block header")
+        bh = int.from_bytes(data[p : p + 3], "little")
+        last = bool(bh & 1)
+        btype = (bh >> 1) & 3
+        bsize = bh >> 3
+        p += 3 + (1 if btype == 1 else bsize)
+    if hdr.checksum_flag:
+        p += 4
+    if p > len(data):
+        raise ZstdError(ZstdErrorCode.srcSize_wrong, "truncated frame")
+    return p - pos
+
+
+def get_dict_id_from_frame(data: bytes, pos: int = 0) -> int:
+    """ZSTD_getDictID_fromFrame: 0 = none/unknown."""
+    try:
+        return parse_frame_header(data[pos:], 31).dict_id
+    except ZstdError:
+        return 0
+
+
+def get_dict_id_from_dict(data: bytes) -> int:
+    """ZSTD_getDictID_fromDict: 0 for raw-content dictionaries."""
+    if len(data) < 8:
+        return 0
+    if int.from_bytes(data[:4], "little") != DICT_MAGIC:
+        return 0
+    return int.from_bytes(data[4:8], "little")

@@ -428,6 +428,32 @@ def build_huf_dtable(nb_bits: np.ndarray, nb_symbols: int, table_log: int) -> Hu
     return HufDTable(table_log, symbol, length)
 
 
+def ctable_from_nbbits(nb_bits: np.ndarray, table_log: int) -> HufCTable:
+    """Rebuild the encode table (canonical code values) from code lengths —
+    used when loading a dictionary's Huffman table (HUF_readCTable analog)."""
+    nb_per_rank = [0] * (HUF_TABLELOG_ABSOLUTEMAX + 2)
+    max_symbol = 0
+    for s in range(256):
+        b = int(nb_bits[s])
+        if b:
+            nb_per_rank[b] += 1
+            max_symbol = s
+    val_per_rank = [0] * (HUF_TABLELOG_ABSOLUTEMAX + 2)
+    mn = 0
+    for b in range(table_log, 0, -1):
+        val_per_rank[b] = mn
+        mn += nb_per_rank[b]
+        mn >>= 1
+    value = np.zeros(256, dtype=np.int32)
+    for s in range(256):
+        b = int(nb_bits[s])
+        if b:
+            value[s] = val_per_rank[b]
+            val_per_rank[b] += 1
+    return HufCTable(table_log, max_symbol, np.asarray(nb_bits, dtype=np.int32),
+                     value)
+
+
 def huf_decode_1x(data: bytes, dt: HufDTable, regen_size: int) -> bytes:
     br = BitReader(data)
     out = bytearray(regen_size)

@@ -4,8 +4,10 @@ Copy of zstd_tpu/format/literals.py's encoder (zstd's
 lib/compress/zstd_compress_literals.c ZSTD_compressLiterals: the
 raw/RLE/compressed/treeless choice, 1X vs 4X, lhSize selection, the minGain
 gate; lib/compress/huf_compress.c HUF_compress_internal:1380, the
-compressibility heuristics and repeat-table reuse) and of its decode side
-(lib/decompress/zstd_decompress_block.c ZSTD_decodeLiteralsBlock:134).
+compressibility heuristics and repeat-table reuse), of the superblock's
+region table (build_region_table, compress_literals_seeded) and of its
+decode side (lib/decompress/zstd_decompress_block.c
+ZSTD_decodeLiteralsBlock:134).
 """
 
 from __future__ import annotations
@@ -107,8 +109,11 @@ def _huf_compress(lit: bytes, single_stream: bool, prev: HufEntropyState,
 
     repeat = prev.repeat
     old = prev.ctable
-    if repeat == HufRepeat.CHECK and (old is None or
-                                      not huffman.huf_validate_ctable(old, count, max_symbol)):
+    # a VALID table is checked too: zstd_tpu trusts it, but the superblock
+    # pieces leave their region's table VALID for the next region, whose
+    # literals it may not cover (a treeless block that cannot decode)
+    if repeat != HufRepeat.NONE and (old is None or
+                                     not huffman.huf_validate_ctable(old, count, max_symbol)):
         repeat = HufRepeat.NONE
     if prefer_repeat and repeat != HufRepeat.NONE and old is not None:
         payload, used1 = encode_best(old)
@@ -150,6 +155,69 @@ def _encode_streams(lit: bytes, ct: huffman.HufCTable,
         out = huffman.huf_encode_1x(lit, ct)
         return out if out else None
     return huffman.huf_encode_4x(lit, ct)
+
+
+def build_region_table(all_lits: bytes):
+    """Superblock support (zstd_compress_superblock.c:263 hufMetadata
+    role): ONE Huffman table built over a whole region's literals, so
+    every piece of the region can encode against it — the first piece
+    emits the description, later pieces go treeless. Returns
+    (ctable, description bytes) or None when the region isn't
+    Huffman-friendly."""
+    n = len(all_lits)
+    if n < 64:
+        return None
+    arr = np.frombuffer(all_lits, dtype=np.uint8)
+    count = np.bincount(arr, minlength=256).astype(np.int64)
+    max_symbol = int(arr.max())
+    if int(count.max()) == n or int(count.max()) <= (n >> 7) + 4:
+        return None
+    huff_log = huffman.huf_optimal_table_log(
+        huffman.HUF_TABLELOG_DEFAULT, n, max_symbol)
+    try:
+        ct, hdr = huffman.build_huf_ctable_with_tree(count, max_symbol,
+                                                     huff_log)
+    except Corruption:
+        return None
+    return ct, hdr
+
+
+def compress_literals_seeded(lit: bytes, table, table_hdr: bytes,
+                             emit_table: bool, strategy: int
+                             ) -> tuple[bytes, bool] | None:
+    """Encode one piece's literals against a shared region table
+    (zstd_compress_superblock.c:506-529 role). emit_table: this piece
+    carries the table description (LBT_COMPRESSED); otherwise treeless.
+    Returns (section bytes, table_was_emitted) or None when raw wins
+    (caller falls back to compress_literals/raw)."""
+    n = len(lit)
+    if n < 6:
+        return None
+    single = n < 256
+    out = _encode_streams(lit, table, single)
+    if not single and n <= 1023:
+        alt = _encode_streams(lit, table, True)
+        if alt is not None and (out is None or len(alt) < len(out)):
+            out, single = alt, True
+    if out is None:
+        return None
+    payload = (table_hdr + out) if emit_table else out
+    if len(payload) >= n - _min_gain(n, strategy):
+        return None
+    h_type = LBT_COMPRESSED if emit_table else LBT_TREELESS
+    c_size = len(payload)
+    lh_size = 3 + (n >= 1024) + (n >= 16384)
+    if lh_size == 3:
+        lhc = h_type + ((0 if single else 1) << 2) + (n << 4) \
+              + (c_size << 14)
+        hdr = lhc.to_bytes(3, "little")
+    elif lh_size == 4:
+        lhc = h_type + (2 << 2) + (n << 4) + (c_size << 18)
+        hdr = lhc.to_bytes(4, "little")
+    else:
+        lhc = h_type + (3 << 2) + (n << 4) + ((c_size & 0x3FF) << 22)
+        hdr = lhc.to_bytes(4, "little") + bytes([(c_size >> 10) & 0xFF])
+    return hdr + payload, emit_table
 
 
 def compress_literals(lit: bytes, prev: HufEntropyState, strategy: int,

@@ -1,7 +1,6 @@
 """Cost-driven block splitting over a ready seqstore.
 
-Copy of zstd_tpu/format/split.py without its target-block-size cuts (the
-port has no target_cblock_size), with ZT_SPLIT_OVH and ZT_SPLIT_MINSEQ
+Copy of zstd_tpu/format/split.py, with ZT_SPLIT_OVH and ZT_SPLIT_MINSEQ
 constants at their defaults (56 and 150). Role of ZSTD_deriveBlockSplits /
 ZSTD_deriveBlockSplitsHelper (zstd's lib/compress/zstd_compress.c:4118-4157):
 recursively split a block's sequence array at midpoints whenever the entropy-estimated cost of
@@ -67,12 +66,37 @@ class _Est:
         return lit_cost + code_cost + float(self.extra_bits[a:b].sum())
 
 
-def split_points(seqs: SeqStore, max_depth: int = 10) -> list[int]:
-    """Sequence-index split points (interior), or [] when one block wins."""
+def target_cost_cum(est: "_Est") -> np.ndarray:
+    """Cumulative per-sequence compressed-size estimate in bits (code
+    entropy ~10 bits + extra bits + ~6 bits per literal byte). Used to
+    propose target-size cuts; block.py corrects them with exact sizing."""
+    ll_bytes = np.diff(est.lit_starts)
+    per_seq = est.extra_bits + 10 + 6 * ll_bytes
+    return np.cumsum(per_seq)
+
+
+def make_estimator(seqs: SeqStore) -> "_Est":
+    return _Est(seqs, np.frombuffer(seqs.literals, dtype=np.uint8))
+
+
+def split_points(seqs: SeqStore, max_depth: int = 10,
+                 target_cblock_size: int | None = None) -> list[int]:
+    """Sequence-index split points (interior), or [] when one block wins.
+
+    target_cblock_size: when set (ZSTD_c_targetCBlockSize / superblock
+    analog, zstd_compress_superblock.c), additionally force splits so each
+    emitted block's ESTIMATED compressed size stays near the target."""
     n = seqs.nb_seq
     lit_arr = np.frombuffer(seqs.literals, dtype=np.uint8)
     est = _Est(seqs, lit_arr)
     out: list[int] = []
+
+    if target_cblock_size:
+        tgt_bits = max(target_cblock_size, 1024) * 8
+        cum = target_cost_cum(est)
+        marks = (cum / tgt_bits).astype(np.int64)
+        cuts = np.nonzero(np.diff(marks) > 0)[0] + 1
+        return [int(c) for c in cuts if 0 < c < n]
 
     if n < 2 * _MIN_SEQS:
         return []

@@ -289,6 +289,57 @@ def xxh64(data, seed: int = 0) -> int:
     return int(_kernels.host().zt_xxh64(_ptr(buf), len(buf), seed))
 
 
+def xxh64_state() -> ctypes.Array:
+    """A zeroed streaming XXH64 state (XXH64_state_t role)."""
+    return ctypes.create_string_buffer(_kernels.host().zt_xxh64_state_size())
+
+
+def xxh64_reset(state, seed: int = 0) -> None:
+    _kernels.host().zt_xxh64_reset(state, seed)
+
+
+def xxh64_update(state, data) -> None:
+    buf = np.frombuffer(data, dtype=np.uint8)
+    _kernels.host().zt_xxh64_update(state, _ptr(buf), len(buf))
+
+
+def xxh64_digest(state) -> int:
+    return int(_kernels.host().zt_xxh64_digest(state))
+
+
+# ---- the lz4 block codec and XXH32 (lz4.c) ----------------------------------
+
+def lz4_block_compress(data: bytes) -> bytes | None:
+    """LZ4 block compress; None if not compressible."""
+    n = len(data)
+    if n == 0:
+        return None
+    cap = n + n // 128 + 64
+    out = np.empty(cap, dtype=np.uint8)
+    src = np.frombuffer(data, dtype=np.uint8)
+    r = _kernels.host().zt_lz4_block_compress(_ptr(src), n, _ptr(out), cap)
+    if r <= 0:
+        return None
+    return out[:r].tobytes()
+
+
+def lz4_block_decompress(data: bytes, cap: int, out: np.ndarray,
+                         start: int = 0) -> int | None:
+    """LZ4 block decompress appended at out[start:]; the bytes before
+    `start` serve as match history (block-linked frames). Returns the
+    produced byte count into `out`, or None on corruption."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    r = _kernels.host().zt_lz4_block_decompress(
+        _ptr(src) if len(data) else None, len(data), _ptr(out), cap, start)
+    return None if r < 0 else int(r)
+
+
+def xxh32(data, seed: int = 0) -> int:
+    src = np.frombuffer(data, dtype=np.uint8)
+    return int(_kernels.host().zt_xxh32(_ptr(src) if len(src) else None,
+                                        len(src), seed))
+
+
 # ---- the entropy planning and encoders (huf.c, encode.c) --------------------
 
 def fse_normalize(count: np.ndarray, table_log: int, total: int,

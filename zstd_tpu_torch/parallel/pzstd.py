@@ -1,7 +1,7 @@
 """pzstd-style multi-frame parallel (de)compression on the host.
 
 Copy of pzstd_compress and pzstd_decompress in zstd_tpu/parallel/pzstd.py,
-without content-defined (rsyncable) chunk boundaries. Same model as zstd's
+with content-defined (rsyncable) chunk boundaries. Same model as zstd's
 contrib/pzstd/Pzstd.cpp:73 (asyncCompressChunks / asyncDecompressFrames):
 the input is split into chunks compressed as INDEPENDENT frames, each
 preceded by a 12-byte skippable frame whose 4-byte payload records the next
@@ -23,6 +23,7 @@ import os
 from ..constants import SKIPPABLE_MAGIC_MIN
 from ..format.codec import compress as _compress, decompress as _decompress
 from ..format.frame import is_skippable
+from ..rsync import split_rsyncable
 
 _HINT_VARIANT = 0  # pzstd uses the base skippable magic for its size hints
 
@@ -43,17 +44,25 @@ def _proc_encode(args: tuple[bytes, int, bool]) -> bytes:
 def pzstd_compress(data: bytes, level: int = 3, checksum: bool = False,
                    chunk_size: int | None = None, workers: int = 4,
                    shard_index: int = 0, shard_count: int = 1,
-                   executor: str = "auto") -> bytes:
+                   executor: str = "auto",
+                   rsync_log: int | None = None) -> bytes:
     """Parallel multi-frame compression.
 
     shard_index/shard_count: multi-host mode — this host compresses only its
     contiguous chunk range; hosts concatenate outputs in shard order.
     executor: 'process' (spawned workers), 'thread', or 'auto' (a process
-    pool when the machine has the cores and there are several chunks)."""
-    if chunk_size is None:
-        chunk_size = max(1 << 22, len(data) // max(workers * 4, 1) or 1)
-    chunks = [data[i : i + chunk_size]
-              for i in range(0, max(len(data), 1), chunk_size)]
+    pool when the machine has the cores and there are several chunks).
+    rsync_log: when set, chunk boundaries are content-defined sync points
+    with mean spacing 2^rsync_log (ZSTD_c_rsyncable analog: local edits
+    re-synchronize the frame stream so rsync transfers only changed
+    frames)."""
+    if rsync_log is not None:
+        chunks = split_rsyncable(data, avg_log=rsync_log) or [data]
+    else:
+        if chunk_size is None:
+            chunk_size = max(1 << 22, len(data) // max(workers * 4, 1) or 1)
+        chunks = [data[i : i + chunk_size]
+                  for i in range(0, max(len(data), 1), chunk_size)]
     mine = chunks
     # preserve global order for multi-host: contiguous ranges, not strides
     if shard_count > 1:
