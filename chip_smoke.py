@@ -33,8 +33,10 @@ host halves (the decode's sequence parse, the block decoder, XXH64, the
 entropy planning and encoders) against their plain Python branches and
 times both (phase 11), drives the command line, python -m
 zstd_tpu_torch.cli, through the device encode and decode and every host
-feature it reaches (phase 12), and prints one JSON line of kernel timings
-before its last line:
+feature it reaches (phase 12), drives the rest of the host API, the
+dictionary trainers, the seekable format and the external sequence
+producer, with their frames decoded on the card (phase 13), and prints one
+JSON line of kernel timings before its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -64,6 +66,11 @@ PZSTD_L19_BYTES = 2 * 1024 * 1024      # phase 10: level 19 and the decode
 CLI_L19_BYTES = 2 * 1024 * 1024        # phase 12: -19
 CLI_DICT_BYTES = 1024 * 1024           # phase 12: -D (its decoder is Python)
 CLI_PATCH_BYTES = 4 * 1024 * 1024      # phase 12: --patch-from
+TRAIN_BYTES = 2 * 1024 * 1024          # phase 13: the trainers' samples
+TRAIN_SAMPLE = 4096                    # phase 13: 512 samples of 4 KiB
+TRAIN_OPT_BYTES = 512 * 1024           # phase 13: --optimize-cover if slow
+TRAIN_DICT_BYTES = 1024 * 1024         # phase 13: -D with the trained dict
+SEEK_FRAME = 1024 * 1024               # phase 13: seekable frame size
 DEVICE = "cuda"
 
 
@@ -1885,6 +1892,210 @@ def cli_phase(dev, corpus: bytes, root: str) -> None:
             f"the host paths launched {launches}"
 
 
+def hostapi_phase(dev, corpus: bytes, root: str) -> None:
+    """Phase 13: the rest of zstd_tpu's host API, none of it a kernel.
+
+    The trainers: `python -m zstd_tpu_torch.cli --train` as a command on
+    TRAIN_BYTES of the corpus cut into samples of TRAIN_SAMPLE bytes, its
+    dictionary equal to finalize_dictionary(train_from_samples(...)) run in
+    this process meanwhile (train and finalize timed apart); --train-cover
+    and --optimize-cover through cli.main on the same samples
+    (--optimize-cover on TRAIN_OPT_BYTES of them if the command took over
+    60 s); -D compress and decompress of TRAIN_DICT_BYTES with the trained
+    dictionary. seekable: seekable_compress of the corpus at level 3 in
+    frames of SEEK_FRAME bytes, three ranges equal to the corpus's slices,
+    and device_decompress of the blob on the card (the decode kernels on
+    the host encoder's frames; the seek table's skippable frame skipped).
+    The sequence producer: a period-8 producer on the corpus's length of
+    b"abcdefgh" and one that returns None on the corpus, at level 3, each
+    frame decoded on the host and on the card."""
+    import io
+    import tempfile
+    import threading
+
+    import zstd_tpu_torch
+    from zstd_tpu_torch import _kernels, cli, device_decoder, dictionary
+    from zstd_tpu_torch import seekable
+    from zstd_tpu_torch.dict_builder.fastcover import train_from_samples
+    from zstd_tpu_torch.dict_builder.zdict import finalize_dictionary
+    from zstd_tpu_torch.format import codec
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    mb = 1e6
+
+    def on_card(label: str, blob: bytes, want: bytes) -> None:
+        for k in _kernels.LAUNCHES:
+            _kernels.LAUNCHES[k] = 0
+        device_decoder.COUNTS["host_frames"] = 0
+        t0 = time.perf_counter()
+        out = device_decoder.device_decompress(blob, device=dev)
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        host_frames = device_decoder.COUNTS["host_frames"]
+        assert out == want, f"{label}: the card's decode differs"
+        assert host_frames == 0, f"{label}: {host_frames} frames went to " \
+            "the host decoder"
+        for k in ("huf_decode", "exec_seq"):
+            assert launches[k] > 0, f"{label}: no {k} launch"
+        print(f"  {label} on the card: device_decompress {wall:.3f} s "
+              f"({len(want) / wall / mb:.2f} MB/s), launches literal_pool "
+              f"{launches['huf_decode']}, exec_seq {launches['exec_seq']}",
+              flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name: str) -> str:
+            return os.path.join(tmp, name)
+
+        def get(name: str) -> bytes:
+            with open(path(name), "rb") as f:
+                return f.read()
+
+        def trainer_leg(flag: str, use: list) -> str:
+            target = path(flag[2:] + ".dict")
+            said = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                assert cli.main([flag, "-o", target, "--maxdict", "112640",
+                                 *use]) == 0, flag
+            wall = time.perf_counter() - t0
+            blob = get(target)
+            assert dictionary.load_dictionary(blob).dict_id >= 32768, flag
+            return (f"  cli.main {flag} on {len(use)} samples: {wall:.3f} s, "
+                    f"dictionary {len(blob)} B ("
+                    + "; ".join(said.getvalue().strip().splitlines()) + ")")
+
+        # ---- the trainers ----
+        train = corpus[:TRAIN_BYTES]
+        samples = [train[i:i + TRAIN_SAMPLE]
+                   for i in range(0, len(train), TRAIN_SAMPLE)]
+        os.makedirs(path("s"))
+        names = []
+        for i, sample in enumerate(samples):
+            names.append(path(f"s/{i:04d}.bin"))
+            with open(names[-1], "wb") as f:
+                f.write(sample)
+        t0 = time.perf_counter()
+        with open(path("train.out"), "wb") as out, \
+                open(path("train.err"), "wb") as err:
+            cmd = subprocess.Popen(
+                [sys.executable, "-m", "zstd_tpu_torch.cli", "--train", "-o",
+                 "d.dict", "--maxdict", "112640", *names], cwd=tmp, env=env,
+                stdout=out, stderr=err)
+        ended = []
+        waiter = threading.Thread(
+            target=lambda: ended.append((cmd.wait(), time.perf_counter())))
+        waiter.start()
+        try:
+            # while the command runs: the same training in this process,
+            # then --train-cover through cli.main
+            t1 = time.perf_counter()
+            raw = train_from_samples(samples, max_dict_size=112640)
+            t_train = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            want = finalize_dictionary(raw, samples, dict_id=0, level=3)
+            t_fin = time.perf_counter() - t1
+            legs = [trainer_leg("--train-cover", names)]
+            waiter.join(timeout=300)
+        finally:
+            if cmd.poll() is None:
+                cmd.kill()
+            waiter.join()
+        rc, t_end = ended[0]
+        t_cmd = t_end - t0
+        assert rc == 0, get("train.err").decode(errors="replace")
+        assert get("d.dict") == want, "the CLI's --train dictionary != " \
+            "finalize_dictionary(train_from_samples(...)) in process"
+        print(f"trainers, {len(samples)} samples of {TRAIN_SAMPLE} B "
+              f"({len(train)} B): --train as a command {t_cmd:.3f} s "
+              f"({get('train.out').decode().strip()}), == in process: "
+              f"train_from_samples {t_train:.3f} s + finalize_dictionary "
+              f"{t_fin:.3f} s (finalize share "
+              f"{t_fin / (t_train + t_fin):.4f}); dictionary {len(want)} B",
+              flush=True)
+        opt_names = names
+        if t_cmd > 60:
+            opt_names = names[:TRAIN_OPT_BYTES // TRAIN_SAMPLE]
+        legs.append(trainer_leg("--optimize-cover", opt_names))
+        for line in legs:
+            print(line, flush=True)
+        data = corpus[len(corpus) // 2:len(corpus) // 2 + TRAIN_DICT_BYTES]
+        with open(path("x.bin"), "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        assert cli.main(["-q", "-D", path("d.dict"), "-f", "-o",
+                         path("x.zst"), path("x.bin")]) == 0
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assert cli.main(["-q", "-d", "-D", path("d.dict"), "-f", "-o",
+                         path("x.out"), path("x.zst")]) == 0
+        t_d = time.perf_counter() - t0
+        assert get("x.out") == data, "-D with the trained dictionary: no " \
+            "round trip"
+        print(f"  -D with the --train dictionary, {len(data)} B: -> "
+              f"{len(get('x.zst'))} B (without it "
+              f"{len(codec.compress(data, level=3))} B), compress {t_c:.3f} "
+              f"s, decompress {t_d:.3f} s, == input", flush=True)
+
+    # ---- seekable ----
+    t0 = time.perf_counter()
+    blob = seekable.seekable_compress(corpus, level=3, frame_size=SEEK_FRAME)
+    t_sc = time.perf_counter() - t0
+    table = seekable.read_seek_table(blob)
+    assert table.content_size == len(corpus)
+    walls = []
+    for offset, length in ((0, 1000), (5 * SEEK_FRAME - 100, 3 * SEEK_FRAME),
+                           (len(corpus) - 10, None)):
+        t0 = time.perf_counter()
+        got = seekable.seekable_decompress(blob, offset, length)
+        walls.append(time.perf_counter() - t0)
+        end = len(corpus) if length is None else offset + length
+        assert got == corpus[offset:end], f"seekable range {offset}"
+    print(f"seekable: {len(corpus)} B at level 3 in {len(table.entries)} "
+          f"frames of {SEEK_FRAME} B -> {len(blob)} B in {t_sc:.3f} s "
+          f"({len(corpus) / t_sc / mb:.2f} MB/s); three ranges equal to the "
+          "corpus in " + ", ".join(f"{w:.3f}" for w in walls) + " s",
+          flush=True)
+    on_card("seekable blob", blob, corpus)
+
+    # ---- the sequence producer ----
+    def period8(full, bs, be, wl):
+        if be - bs < 64:
+            return None
+        ml = (be - bs) - 16
+        ml -= ml % 8
+        return [(8, 8, ml)]
+
+    asked = []
+
+    def none(full, bs, be, wl):
+        asked.append(bs)
+        return None
+
+    period = b"abcdefgh" * (len(corpus) // 8)
+    for label, producer, data in (("period-8 producer", period8, period),
+                                  ("None producer", none, corpus)):
+        zstd_tpu_torch.register_sequence_producer(producer)
+        try:
+            t0 = time.perf_counter()
+            frame = codec.compress(data, level=3, checksum=True)
+            t_c = time.perf_counter() - t0
+        finally:
+            zstd_tpu_torch.register_sequence_producer(None)
+        t0 = time.perf_counter()
+        assert codec.decompress(frame) == data, f"{label}: host decode"
+        t_h = time.perf_counter() - t0
+        print(f"producer: {label}, {len(data)} B at level 3 -> {len(frame)} "
+              f"B in {t_c:.3f} s ({len(data) / t_c / mb:.2f} MB/s); host "
+              f"decode {t_h:.3f} s", flush=True)
+        on_card(label, frame, data)
+    assert len(asked) >= len(corpus) // (128 * 1024), \
+        f"the None producer was asked for {len(asked)} blocks"
+    print(f"  the None producer was asked for {len(asked)} blocks",
+          flush=True)
+
+
 def main() -> int:
     signal.alarm(1150)             # hard deadline: the default action exits
     import numpy as np
@@ -2122,6 +2333,9 @@ def main() -> int:
 
     # ---- 12. the command line ----------------------------------------------
     cli_phase(dev, corpus, root)
+
+    # ---- 13. the host API: trainers, seekable, the sequence producer ------
+    hostapi_phase(dev, corpus, root)
     print(card_line(), flush=True)       # again, beside the numbers below
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,8 @@ own: through `zstd_tpu.cli.main(argv)` and through
 output (bytes), standard error and every file left in the directory must be
 equal. `--engine tpu` / `gpu` is held to zstd_tpu with the jax_reference
 fixture's setting (ZSTD_TPU_ENGINE=pallas, the Pallas kernel interpreted).
+The dictionary trainers (--train, --train-cover, --train-fastcover,
+--train-legacy, --optimize-cover) must write the same dictionary file.
 
 Where the two differ by design, the test shows both:
 - ZSTD_TPU_ENGINE=host moves zstd_tpu's encode onto its device pipeline
@@ -14,8 +16,6 @@ Where the two differ by design, the test shows both:
 - lz4 input with bytes after its last frame decodes to partial output and
   exits 0 in zstd_tpu (:274-280); the port reports the trailing bytes and
   exits 1, as both do after zstd frames;
-- the dictionary trainers are not ported: the port names the missing
-  trainer and exits 1;
 - --version names the package.
 """
 
@@ -449,19 +449,33 @@ def test_lz4_trailing_bytes_pin_reference_fault(tmp_path, monkeypatch):
     assert zstd_want[0] == zstd_got[0] == 1
 
 
-@pytest.mark.parametrize("flag,module", (
-    ("--train", "fastcover.py"), ("--train-fastcover", "fastcover.py"),
-    ("--train-cover", "cover.py"), ("--train-legacy", "cover.py"),
-    ("--optimize-cover", "cover.py")))
-def test_training_flags_are_refused(tmp_path, monkeypatch, flag, module):
-    res = _run(monkeypatch, str(tmp_path / "t"),
-               functools.partial(tcli.main, device="cpu"),
-               [flag, "s.bin", "dir/x.bin", "-o", "dict.out"], FILES)
-    assert res[0] == 1 and res[1] == b""
-    assert res[2] == (f"zstd: {flag}: the dictionary trainer "
-                      f"(dict_builder/{module}) is not ported to "
-                      "zstd_tpu_torch yet\n")
-    assert "dict.out" not in res[3]
+TRAIN = {f"t/{i:02d}.txt": gen_text(1200 + 131 * i, seed=500 + i)
+         for i in range(16)}
+TRAIN.update({f"t/c{i}.bin": A[i * 3000:(i + 1) * 3000] for i in range(8)})
+TRAINING = {
+    "train": ["--train"],
+    "train_fastcover": ["--train-fastcover"],
+    "train_cover": ["--train-cover"],
+    "train_legacy": ["--train-legacy"],
+    "optimize_cover": ["--optimize-cover"],
+    "dict_id_maxdict": ["--train", "--dictID", "777", "--maxdict", "4096"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAINING) + ["no_training_files"])
+def test_training_flags_equal_jax(tmp_path, monkeypatch, case):
+    """The trainers' exit code, messages and dictionary file."""
+    if case == "no_training_files":
+        argv = ["--train", "-o", "dict.out"]
+    else:
+        argv = TRAINING[case] + ["-o", "dict.out"] + sorted(TRAIN)
+    want, got = both(tmp_path, monkeypatch, argv, files=TRAIN)
+    _same(want, got)
+    if case == "no_training_files":
+        assert got[0] == 1 and got[2] == "zstd: no training files\n"
+    else:
+        assert got[0] == 0 and b"Save dictionary of size" in got[1]
+        assert got[3]["dict.out"][:4] == b"\x37\xa4\x30\xec"
 
 
 def test_version_names_the_port(tmp_path, monkeypatch):

@@ -535,7 +535,8 @@ API = ("compress", "decompress", "compress_patch", "decompress_patch",
        "compress_bound", "find_frame_compressed_size",
        "get_dict_id_from_dict", "get_dict_id_from_frame",
        "get_frame_content_size", "is_frame", "ZstdError", "ZstdErrorCode",
-       "CParams", "get_cparams", "xxh64", "__version__")
+       "CParams", "get_cparams", "xxh64", "register_sequence_producer",
+       "__version__")
 
 
 @pytest.mark.parametrize("name", API)

@@ -35,7 +35,9 @@ def test_import_leaves_out_jax_and_zstd_tpu():
               "native", "ops.ldm", "format.ldm", "format.opt",
               "format.frame", "format.lazy", "format.split", "format.block",
               "format.codec", "cli", "trace", "streaming", "fileio_async",
-              "rsync", "lz4frame", "dictionary"):
+              "rsync", "lz4frame", "dictionary", "dict_builder.fastcover",
+              "dict_builder.cover", "dict_builder.zdict", "seekable",
+              "format.matchfinder"):
         assert f"zstd_tpu_torch.{m}" in modules
 
 
@@ -60,8 +62,12 @@ def test_host_c_is_whole_and_reads_no_environment():
 
 
 def test_host_codec_imports_no_torch():
-    """pzstd's spawned workers import the host codec without torch."""
+    """pzstd's spawned workers import the host codec without torch; so do
+    the dictionary trainers and the seekable format."""
     code = ("import sys, zstd_tpu_torch.parallel.pzstd\n"
+            "import zstd_tpu_torch.dict_builder.zdict\n"
+            "import zstd_tpu_torch.dict_builder.cover\n"
+            "import zstd_tpu_torch.seekable\n"
             "sys.exit(1 if 'torch' in sys.modules else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -72,8 +78,9 @@ def test_host_codec_imports_no_torch():
 @pytest.mark.parametrize("argv", (
     ["-3", "-c", "in.bin"], ["-d", "-c", "in.bin.zst"],
     ["--format", "lz4", "-c", "in.bin"],
-    ["-T2", "--rsyncable", "-o", "out.zst", "in.bin"]),
-    ids=("compress", "decompress", "lz4", "rsyncable"))
+    ["-T2", "--rsyncable", "-o", "out.zst", "in.bin"],
+    ["--train", "-o", "d.dict", "in.bin", "in.bin.zst"]),
+    ids=("compress", "decompress", "lz4", "rsyncable", "train"))
 def test_cli_host_paths_import_no_torch(tmp_path, argv):
     """`python -m zstd_tpu_torch.cli` on a host path runs without torch."""
     from zstd_tpu_torch.format import codec

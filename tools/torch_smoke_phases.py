@@ -6,8 +6,10 @@ only those phases changed.
     python3 tools/torch_smoke_phases.py ldm pzstd
 
 Phases: "ldm" (phase 9, chip_smoke.ldm_phase), "pzstd" (phase 10,
-chip_smoke.pzstd_phase, on the 16 MiB big_corpus) and "cli" (phase 12,
-chip_smoke.cli_phase, on the same corpus). Prints the card line
+chip_smoke.pzstd_phase, on the 16 MiB big_corpus), "cli" (phase 12,
+chip_smoke.cli_phase, on the same corpus) and "hostapi" (phase 13,
+chip_smoke.hostapi_phase: the dictionary trainers, the seekable format and
+the sequence producer, on the same corpus). Prints the card line
 first and last, and each phase's output; exits non-zero if a check fails.
 """
 
@@ -43,6 +45,9 @@ def main(argv: list[str]) -> int:
         elif phase == "cli":
             chip_smoke.cli_phase(dev, big_corpus(chip_smoke.CORPUS_BYTES),
                                  ROOT)
+        elif phase == "hostapi":
+            chip_smoke.hostapi_phase(
+                dev, big_corpus(chip_smoke.CORPUS_BYTES), ROOT)
         else:
             raise SystemExit(f"unknown phase {phase!r}")
     print(chip_smoke.card_line(), flush=True)

@@ -27,6 +27,7 @@ __version__ = "0.1.0"
 _ENTRY = {"compress": "format.codec", "decompress": "format.codec",
           "compress_patch": "format.codec",
           "decompress_patch": "format.codec",
+          "register_sequence_producer": "format.block",
           "compress_bound": "format.frame",
           "find_frame_compressed_size": "format.frame",
           "get_dict_id_from_dict": "format.frame",

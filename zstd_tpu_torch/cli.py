@@ -19,8 +19,7 @@ Two of zstd_tpu's faults are not inherited: ZSTD_TPU_ENGINE set to anything
 does not move the encode onto the device path (zstd_tpu/cli.py:146), and
 lz4 input with bytes after its last frame is an error (exit 1), as trailing
 bytes after zstd frames are, where zstd_tpu decodes the frames and exits 0
-(:274-280). The dictionary trainers (--train*, --optimize-cover) are not
-ported yet: they print an error naming the trainer and exit 1.
+(:274-280).
 """
 
 from __future__ import annotations
@@ -484,22 +483,35 @@ def _do_bench(files, args) -> int:
     return 0
 
 
-_TRAINERS = (("opt_cover", "--optimize-cover", "cover.py"),
-             ("train_cover", "--train-cover", "cover.py"),
-             ("train_legacy", "--train-legacy", "cover.py"),
-             ("train_fastcover", "--train-fastcover", "fastcover.py"),
-             ("train", "--train", "fastcover.py"))
-
-
 def _do_train(files, args) -> int:
-    """The dictionary trainers (zstd_tpu's dict_builder/) are not ported
-    yet: name the one the flags ask for and fail, running nothing in its
-    place."""
-    flag, module = next((f, m) for dest, f, m in _TRAINERS
-                        if getattr(args, dest))
-    _err(f"{flag}: the dictionary trainer (dict_builder/{module}) is not "
-         "ported to zstd_tpu_torch yet")
-    return 1
+    from .dict_builder.fastcover import train_from_samples
+    from .dict_builder.zdict import finalize_dictionary
+    samples = [open(f, "rb").read() for f in files]
+    if not samples:
+        _err("no training files")
+        return 1
+    if args.opt_cover:
+        from .dict_builder.cover import optimize_train
+        raw, params = optimize_train(samples, max_dict_size=args.maxdict,
+                                     cover=args.train_cover)
+        if not args.quiet:
+            print(f"optimized parameters: k={params['k']} d={params['d']}")
+    elif args.train_cover or args.train_legacy:
+        # --train-legacy routes to COVER: the divsufsort-based legacy
+        # analysis is a documented non-goal; COVER is the closest
+        # exhaustive trainer
+        from .dict_builder.cover import train_from_samples_cover
+        raw = train_from_samples_cover(samples, max_dict_size=args.maxdict)
+    else:
+        raw = train_from_samples(samples, max_dict_size=args.maxdict)
+    dict_bytes = finalize_dictionary(raw, samples, dict_id=args.dictID,
+                                     level=args.level or 3)
+    out = args.output or "dictionary"
+    with open(out, "wb") as fh:
+        fh.write(dict_bytes)
+    if not args.quiet:
+        print(f"Save dictionary of size {len(dict_bytes)} into file {out}")
+    return 0
 
 
 def _expand_inputs(args) -> list[str]:

@@ -6,11 +6,13 @@ zstd_tpu/format/block.py (zstd's lib/compress/zstd_compress.c
 ZSTD_compressBlock_internal:4325, ZSTD_buildSeqStore:3207's parser
 dispatch, ZSTD_entropyCompressSeqStore:3001's raw/RLE gates,
 ZSTD_deriveBlockSplits:4118; lib/decompress/zstd_decompress_block.c
-ZSTD_decompressBlock_internal + ZSTD_execSequence:1001). Left out: the
-external sequence producer (zstd_tpu's is None unless registered), the
-ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER overrides (their defaults are
-constants). The device decoder
-sends a frame whose blocks the device cannot take to the decoder here.
+ZSTD_decompressBlock_internal + ZSTD_execSequence:1001), with the
+external sequence producer (register_sequence_producer,
+ZSTD_registerSequenceProducer analog): while one is registered it is asked
+first for every block, and the whole-frame C routes of format/frame.py
+stand aside. Left out: the ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER
+overrides (their defaults are constants). The device decoder sends a frame
+whose blocks the device cannot take to the decoder here.
 """
 
 from __future__ import annotations
@@ -29,9 +31,9 @@ from .literals import (HufDecodeState, HufEntropyState, HufRepeat, _min_gain,
                        build_region_table, compress_literals,
                        compress_literals_seeded, decode_literals)
 from .matchfinder import resolve_offset, update_reps
-from .sequences import (FseDecodeState, FseEntropyState, _EmitRawBlock,
-                        decode_sequences, parse_sequences_section,
-                        write_sequences_section)
+from .sequences import (FseDecodeState, FseEntropyState, SeqStore,
+                        _EmitRawBlock, decode_sequences,
+                        parse_sequences_section, write_sequences_section)
 from .split import (make_estimator, segment_content_len, slice_seqstore,
                     split_points, target_cost_cum)
 
@@ -51,6 +53,47 @@ class BlockCState:
     opt_ctx_b: object = None
     # persistent row-matchfinder tables (pos, tag, head, long)
     row_table: object = None
+
+
+_SEQ_PRODUCER = None
+
+
+def register_sequence_producer(fn) -> None:
+    """External sequence producer (ZSTD_registerSequenceProducer analog,
+    zstd's lib/compress/zstd_compress.c:3294): fn(full, block_start,
+    block_end, window_low) -> list of (lit_length, raw_offset, match_length)
+    or None to fall back to the built-in finders. Sequences are validated;
+    invalid output raises Corruption rather than emitting a bad frame.
+    register_sequence_producer(None) restores the built-in finders."""
+    global _SEQ_PRODUCER
+    _SEQ_PRODUCER = fn
+
+
+def _seqs_from_producer(full, block_start, block_end, window_low, reps,
+                        raw_seqs):
+    lls, obs, mbs = [], [], []
+    lit_parts = []
+    pos = block_start
+    r = reps
+    for (ll, off, ml) in raw_seqs:
+        if ll < 0 or ml < MIN_MATCH or off <= 0:
+            raise Corruption("sequence producer: invalid sequence")
+        start = pos + ll
+        if start + ml > block_end or start - off < window_low:
+            raise Corruption("sequence producer: out-of-window sequence")
+        if not np.array_equal(full[start : start + ml],
+                              full[start - off : start - off + ml]):
+            raise Corruption("sequence producer: match bytes do not repeat")
+        lit_parts.append(full[pos : start].tobytes())
+        ob = off + 3  # conservative encoding; repcodes not asserted
+        lls.append(ll)
+        obs.append(ob)
+        mbs.append(ml - MIN_MATCH)
+        r = update_reps(r, ob, ll)
+        pos = start + ml
+    lit_parts.append(full[pos:block_end].tobytes())
+    return SeqStore(np.array(lls, np.int32), np.array(obs, np.int32),
+                    np.array(mbs, np.int32), b"".join(lit_parts)), r
 
 
 def compress_block(full, block_start: int, block_end: int, window_low: int,
@@ -100,6 +143,12 @@ def compress_block(full, block_start: int, block_end: int, window_low: int,
 def _find_block_sequences(full, block_start, block_end, window_low, state,
                           cparams, ldm_ctx=None):
     """Sequence extraction for one block (ZSTD_buildSeqStore dispatch)."""
+    produced = None
+    if _SEQ_PRODUCER is not None:
+        produced = _SEQ_PRODUCER(full, block_start, block_end, window_low)
+    if produced is not None:
+        return _seqs_from_producer(
+            full, block_start, block_end, window_low, state.reps, produced)
     if ldm_ctx is not None:  # --long: the long matcher wraps the inner one
         return find_sequences_ldm(
             full, block_start, block_end, window_low, state.reps, cparams,
@@ -170,7 +219,7 @@ def compress_block_pieces(full, block_start, block_end, window_low, state,
     # self-seeded re-parses, sized EXACTLY here; the smallest encode wins
     # and its matcher context chains forward.
     candidates = None
-    if ldm_ctx is None and strategy >= 8:
+    if _SEQ_PRODUCER is None and ldm_ctx is None and strategy >= 8:
         candidates = opt.find_sequences_opt_dual(
             full, block_start, block_end, window_low, state.reps, cparams,
             state)

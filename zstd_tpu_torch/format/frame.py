@@ -6,11 +6,10 @@ ZSTD_writeFrameHeader:4626 and ZSTD_compress_frameChunk:4527,
 lib/decompress/zstd_decompress.c ZSTD_getFrameHeader_advanced:447 and
 ZSTD_decompressFrame:951, and the inspection helpers of zstd.h), with the
 window prefix (--patch-from), the target block size (superblock) and the
-trace progression counters, without an external sequence producer.
-compress_frame runs the whole-frame C paths of csrc/host/cblock.c where
-zstd_tpu does (ZSTD_TPU_HOST_PARSER and ZSTD_TPU_OPT_ITER at their
-defaults; none with a prefix or a target block size), else the per-block
-loop. decompress_frame runs the port's copy of native/decode.c
+trace progression counters. compress_frame runs the whole-frame C paths
+of csrc/host/cblock.c where zstd_tpu does (ZSTD_TPU_HOST_PARSER and
+ZSTD_TPU_OPT_ITER at their defaults; none with a prefix, a target block
+size or a registered sequence producer), else the per-block loop. decompress_frame runs the port's copy of native/decode.c
 (csrc/host/decode.c) as zstd_tpu's does, and its Python block loop where
 that C declines; decompress_frame_plain is that Python branch alone.
 _split_points takes the C of csrc/host/encode.c at its default threshold,
@@ -31,6 +30,7 @@ from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_COMPRESSED,
 from ..errors import Corruption, ZstdError, ZstdErrorCode
 from ..trace import GLOBAL_PROGRESSION
 from ..xxhash64 import content_checksum
+from . import block
 from .block import (BlockCState, BlockDState, compress_block,
                     compress_block_pieces, decompress_block)
 from .ldm import LdmState
@@ -243,8 +243,10 @@ def compress_frame(data: bytes, cparams, checksum: bool = False,
             out += content_checksum(b"").to_bytes(4, "little")
         return bytes(out)
 
+    # the whole-frame C routes never ask a registered sequence producer
     if (not long_mode and not prefix and ldm_state is None
-            and not target_cblock_size and n >= 128):
+            and not target_cblock_size and n >= 128
+            and block._SEQ_PRODUCER is None):
         blocks = _c_frame(data, cparams)
         if blocks is not None:
             return _finish_c_frame(out, blocks, checksum, data)

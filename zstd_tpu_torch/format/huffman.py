@@ -428,6 +428,10 @@ def build_huf_dtable(nb_bits: np.ndarray, nb_symbols: int, table_log: int) -> Hu
     return HufDTable(table_log, symbol, length)
 
 
+def ctable_to_dtable(ct: HufCTable) -> HufDTable:
+    return build_huf_dtable(ct.nb_bits, ct.max_symbol + 1, ct.table_log)
+
+
 def ctable_from_nbbits(nb_bits: np.ndarray, table_log: int) -> HufCTable:
     """Rebuild the encode table (canonical code values) from code lengths —
     used when loading a dictionary's Huffman table (HUF_readCTable analog)."""

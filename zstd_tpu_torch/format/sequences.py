@@ -29,7 +29,7 @@ from ..constants import (
     ML_BASE, ML_BITS, ML_DEFAULT_DIST, ML_DEFAULT_LOG, ML_FSE_LOG,
     MODE_FSE, MODE_PREDEFINED, MODE_REPEAT, MODE_RLE,
     OF_DEFAULT_DIST, OF_DEFAULT_LOG, OF_FSE_LOG,
-    _LL_CODE_TABLE, _ML_CODE_TABLE,
+    _LL_CODE_TABLE, _ML_CODE_TABLE, highbit32, ll_code, ml_code,
 )
 from .. import native
 from ..errors import Corruption
@@ -218,6 +218,20 @@ class SeqStore:
     @property
     def nb_seq(self) -> int:
         return len(self.lit_length)
+
+
+def seq_to_codes(seqs: SeqStore) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The LL, OF and ML codes of every sequence, one at a time
+    (seq_to_codes_np is the vectorized form)."""
+    n = seqs.nb_seq
+    llc = np.zeros(n, dtype=np.int32)
+    ofc = np.zeros(n, dtype=np.int32)
+    mlc = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        llc[i] = ll_code(int(seqs.lit_length[i]))
+        ofc[i] = highbit32(int(seqs.off_base[i]))
+        mlc[i] = ml_code(int(seqs.ml_base[i]))
+    return llc, ofc, mlc
 
 
 def seq_to_codes_np(ll: np.ndarray, ob: np.ndarray, mlb: np.ndarray

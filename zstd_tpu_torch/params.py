@@ -1,6 +1,6 @@
-"""Compression parameters: level tables and negotiation.
+"""Compression parameters: level tables, negotiation, bounds.
 
-Copy of zstd_tpu/params.py (get_cparams and what it needs). Level table values
+Copy of zstd_tpu/params.py. Level table values
 are behavioral data copied for parity from zstd's lib/compress/clevels.h:25
 (ZSTD_defaultCParameters), as the exact (-1/-3/-19 …) level semantics depend
 on them. Adjustment logic mirrors lib/compress/zstd_compress.c
@@ -42,6 +42,13 @@ class CParams:
     min_match: int
     target_length: int
     strategy: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameParams:
+    content_size_flag: bool = True
+    checksum_flag: bool = False
+    no_dict_id_flag: bool = False
 
 
 # (W, C, H, S, L, TL, strategy) x 23 rows x 4 srcSize classes.
@@ -160,3 +167,35 @@ def get_cparams(level: int, src_size: int = CONTENTSIZE_UNKNOWN,
         cp = dataclasses.replace(cp, target_length=-clamped)
     return adjust_cparams(cp, src_size, dict_size)
 
+
+BLOCK_MAX_SIZE_P = 128 * 1024
+MIN_MATCH_P = 3
+
+
+def estimate_cctx_size(level: int,
+                       src_size: int = CONTENTSIZE_UNKNOWN) -> int:
+    """Workspace estimate for one compression context, in bytes.
+
+    Parity role: ZSTD_estimateCCtxSize (zstd's lib/compress/zstd_compress.c
+    ZSTD_estimateCCtxSize_internal, zstd_cwksp.h sizing). There is no arena
+    allocator here, but the sizing semantics hold: match-state tables scale
+    with the hash and chain logs, plus the block buffer, the seqstore bound
+    and the entropy workspaces, so capacity planning written against zstd
+    keeps working.
+    """
+    cp = get_cparams(level, src_size)
+    block_size = min(1 << cp.window_log, BLOCK_MAX_SIZE_P)
+    hash_size = 4 << cp.hash_log
+    chain_size = 4 << cp.chain_log if cp.strategy >= Strategy.DFAST else 0
+    h3_size = (4 << 16) if cp.strategy >= Strategy.BTOPT else 0
+    # seqstore: (pos, len, off) int32 triples + literal buffer
+    seq_bound = block_size // MIN_MATCH_P + 1
+    seqstore = seq_bound * 3 * 4 + block_size
+    entropy_ws = 8 * 1024          # tables + scratch (HUF/FSE builds)
+    buffers = 2 * block_size       # input window slice + output bound
+    return hash_size + chain_size + h3_size + seqstore + entropy_ws + buffers
+
+
+def estimate_dctx_size() -> int:
+    """ZSTD_estimateDCtxSize analog: entropy tables + block buffer."""
+    return (4 << 11) * 3 + (4 << 12) + 2 * BLOCK_MAX_SIZE_P
