@@ -17,9 +17,11 @@ frame's group and on adversarial inputs, with the kernels' counts; the
 over-read, literal-overrun and depth errors; the fixture frames of
 tests/data/torch_decode), and drives the lazy engine (phase 7: the fused
 scoring-and-resolve kernel against its plain chain in the lazy and v3
-modes, the 16 MiB level-5 encode with its profile and stage times, the
-1 MiB prefix's frames at levels 5 and 9 and under the v3 engine against
-the CPU path, and the level-5 frame decoded on the card), drives the xla
+modes, the seqstore tail's two kernels, seq_merge and seq_finish, against
+their plain torch ops, the 16 MiB level-5 encode with its profile and
+stage times and an A/B against the plain tail, the 1 MiB prefix's frames
+at levels 5 and 9 and under the v3 engine against the CPU path, and the
+level-5 frame decoded on the card), drives the xla
 engine and the sharded encode (phase 8: the xla_walk kernel, from the
 candidates to the seqstore and the literal index in one launch, against
 its plain chain and its counts against tests/xlaextractmodel.py, the 16 MiB
@@ -58,6 +60,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 N_BLOCK = 128 * 1024           # main path: 128 KiB blocks
 CORPUS_BYTES = 16 * 1024 * 1024
 PREFIX_BYTES = 1024 * 1024
+LEVEL5_FRAME_BYTES = 5501989           # the corpus's level-5 frame
 LONG_BYTES = 64 * 1024 * 1024          # phase 9: discovery
 LONG_FRAME_BYTES = 16 * 1024 * 1024    # phase 9: compress_long_sharded
 LONG_PREFIX_BYTES = 4 * 1024 * 1024
@@ -197,6 +200,26 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+# finish_sequences' seqstore, in the order its kernel is compared
+SEQSTORE_KEYS = ("nb_seq", "ll", "off", "ml", "lit_idx", "nb_lit",
+                 "overflow")
+
+
+def plain_tail_call(fn, *args):
+    """fn(*args) with the lazy and v3 engines' seqstore tail on its plain
+    torch ops: ops/fastmatch's seq_merge and finish_sequences swapped for
+    seq_merge_plain and finish_sequences_plain while it runs (the pattern
+    of tests/hostplain.plain_branches), then restored."""
+    from zstd_tpu_torch.ops import fastmatch as fm
+    saved = fm.seq_merge, fm.finish_sequences
+    fm.seq_merge, fm.finish_sequences = (fm.seq_merge_plain,
+                                         fm.finish_sequences_plain)
+    try:
+        return fn(*args)
+    finally:
+        fm.seq_merge, fm.finish_sequences = saved
+
+
 class timed_calls:
     """Within the block, calls of each (owner, attribute) add their host
     wall time to `seconds[label]`."""
@@ -288,7 +311,7 @@ def profiled_encode(pipeline, dev, corpus: bytes, level: int,
           f"busy {prof['busy_ms']:.1f} ms, idle share "
           f"{1 - prof['busy_ms'] / prof['wall_ms']:.5f}", flush=True)
     for kern in ("extract_kernel", "fse_chain_kernel", "lazy_resolve_kernel",
-                 "xla_walk_kernel"):
+                 "seq_merge_kernel", "seq_finish_kernel", "xla_walk_kernel"):
         ms = sum(v for k, v in prof["by_name"].items() if kern in k)
         print(f"  {kern}: {ms:.3f} ms of device time", flush=True)
     top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:12]
@@ -661,17 +684,20 @@ def decode_phase(dev, corpus: bytes, frame: bytes, root: str) -> list:
     ]
 
 
-def lazy_phase(dev, corpus: bytes) -> dict:
+def lazy_phase(dev, corpus: bytes) -> list:
     """Phase 7: the lazy engine. The fused scoring-and-resolve kernel
     against its plain chain (lazy_mlen or capped_mlen, next_matchable,
     resolve_plain) in lazy mode on batch 0 at level 5 and on zero, period-4,
     random and short-valid_len rows, in v3 mode on batch 0 and the short
-    rows, with its active steps a chunk; its time, bound and the plain
-    chain's; each stage of the engine on batch 0; the 16 MiB level-5 encode
-    (launches, rate, profile); the 1 MiB prefix's frames at levels 5 and 9
-    (hash_log 21) and under the v3 engine against the CPU path, and the
-    level-5 one decoded on the card. Returns the kernel's entry of the
-    kernels line."""
+    rows, with its active steps a chunk, and on each of those slot sets the
+    seqstore tail's kernels, seq_merge and seq_finish, against their plain
+    torch ops (also at seq_cap 64 on lazy batch 0, where compact drops
+    groups, and on rows of 262,144 and 9,001 B); each kernel's time, bound and its plain version's; each stage
+    of the engine on batch 0; the 16 MiB level-5 encode (launches, rate,
+    profile) and its A/B against the plain tail in this call; the 1 MiB
+    prefix's frames at levels 5 and 9 (hash_log 21) and under the v3 engine
+    against the CPU path, and the level-5 one decoded on the card. Returns
+    the three kernels' entries of the kernels line."""
     import numpy as np
     import torch
     from zstd_tpu_torch import _kernels, device_decoder, pipeline
@@ -703,11 +729,37 @@ def lazy_phase(dev, corpus: bytes) -> dict:
              ("v3", "batch 0"): (b0, lens),
              ("v3", "valid_len 100,003 and 77,777 rows"): short}
     err = 0
+    tail_err = {"seq_merge": 0, "seq_finish": 0}
+
+    def check_tail(blocks, tri, yp, yl, cand, c_lens, cap, label):
+        """seq_merge and seq_finish against their plain versions on one
+        set of slots (both finishes on the merged sequences, once the two
+        merges agree)."""
+        merged = fm.seq_merge(yp, yl, cand, blocks, tri, cap)
+        torch.cuda.synchronize()
+        want_m = fm.seq_merge_plain(yp, yl, cand, blocks, tri, cap)
+        e_m = max_abs_err(merged, want_m)
+        assert e_m == 0, f"seq_merge kernel disagrees with its plain ({label})"
+        fin = fm.finish_sequences(blocks, tri, *merged, c_lens, cap)
+        torch.cuda.synchronize()
+        want_f = fm.finish_sequences_plain(blocks, tri, *merged, c_lens, cap)
+        e_f = max_abs_err(tuple(fin[k] for k in SEQSTORE_KEYS),
+                          tuple(want_f[k] for k in SEQSTORE_KEYS))
+        print(f"  seq_merge, seq_finish {label} (seq_cap {cap}): max_abs_err "
+              f"{e_m} (pos, len, dist, nb), {e_f} ({', '.join(SEQSTORE_KEYS)}"
+              f"); nb_seq {merged[3].tolist()[:4]}, nb_lit "
+              f"{fin['nb_lit'].tolist()[:4]}, overflow "
+              f"{int(fin['overflow'].sum())} of {blocks.shape[0]} rows",
+              flush=True)
+        assert e_f == 0, f"seq_finish kernel disagrees with its plain ({label})"
+        tail_err["seq_merge"] = max(tail_err["seq_merge"], e_m)
+        tail_err["seq_finish"] = max(tail_err["seq_finish"], e_f)
+
     for (mode, name), case in cases.items():
         if not isinstance(case, tuple):
             case = (torch.from_numpy(case[None].copy()).to(dev), lens[:1])
         blocks, c_lens = case
-        rows = candidates(blocks, c_lens, mode)[1]
+        c_tri, rows = candidates(blocks, c_lens, mode)
         (yp, yl, cand), steps = fm.select_resolve_stats(blocks, rows, c_lens,
                                                         mode)
         torch.cuda.synchronize()
@@ -720,6 +772,25 @@ def lazy_phase(dev, corpus: bytes) -> dict:
               flush=True)
         assert e == 0, f"lazy_resolve kernel disagrees with its plain ({name})"
         err = max(err, e)
+        check_tail(blocks, c_tri, yp, yl, cand, c_lens, seq_cap,
+                   f"{mode} {name}")
+        if (mode, name) == ("lazy", "batch 0"):
+            # the overflow case: compact drops groups past the cap
+            check_tail(blocks, c_tri, yp, yl, cand, c_lens, 64,
+                       f"{mode} {name}")
+    # rows the main path never makes, for the kernels' other paths: 262,144
+    # B (the groups and the row's bytes do not fit in shared memory: global
+    # scratch) and 9,001 B (byte staging, unaligned rows, scalar lit_idx
+    # stores), on the plain resolve's slots
+    for n_odd, v_odd in ((2 * N_BLOCK, (2 * N_BLOCK, 200_001)),
+                         (9001, (9001, 8901))):
+        blocks = torch.from_numpy(arr[:2 * n_odd].reshape(2, n_odd).copy()
+                                  ).to(dev)
+        c_lens = torch.tensor(v_odd, dtype=torch.int32, device=dev)
+        c_tri, rows = candidates(blocks, c_lens)
+        slots = fm.select_resolve_plain(blocks, rows, c_lens, "lazy")
+        check_tail(blocks, c_tri, *slots, c_lens, n_odd // 8,
+                   f"lazy rows of {n_odd} B, valid_len {v_odd}")
     tri, rows = candidates(b0, lens)
     r_args = (b0, rows, lens, "lazy")
     r_ms = cuda_ms(lambda: fm.select_resolve(*r_args))
@@ -744,41 +815,63 @@ def lazy_phase(dev, corpus: bytes) -> dict:
           f"{v_bytes / HBM_BYTES_PER_S * 1e6:.2f} us ({v_bytes} B), plain "
           f"chain {v_plain_ms:.1f} ms host wall", flush=True)
 
+    # ---- the seqstore tail's kernels on batch 0 ------------------------------
+    m_args = (yp, yl, cand, b0, tri, seq_cap)
+    merged = fm.seq_merge(*m_args)
+    f_args = (b0, tri, *merged, lens, seq_cap)
+    fin = fm.finish_sequences(*f_args)
+    # each input read once, each output written once (the kernels read the
+    # bytes, not the tri words; nb_seq passes through finish_sequences)
+    tail = {
+        "seq_merge": (lambda: fm.seq_merge(*m_args),
+                      lambda: fm.seq_merge_plain(*m_args),
+                      nbytes(yp, yl, cand, b0, *merged),
+                      "yp, yl, cand, blocks read; pos, len, dist, nb "
+                      "written"),
+        "seq_finish": (lambda: fm.finish_sequences(*f_args),
+                       lambda: fm.finish_sequences_plain(*f_args),
+                       nbytes(b0, *merged, lens,
+                              *(fin[k] for k in SEQSTORE_KEYS[1:])),
+                       "blocks, pos, len, dist, nb, valid_lens read; ll, "
+                       "off, ml, lit_idx, nb_lit, overflow written"),
+    }
+    tail_ms = {}
+    for name, (kernel, plain, nb_, what) in tail.items():
+        k_ms = cuda_ms(kernel)
+        p_dev = graph_ms(plain)
+        p_host = min(host_ms(plain) for _ in range(3))
+        bound = nb_ / HBM_BYTES_PER_S * 1e3
+        tail_ms[name] = (k_ms, p_host, bound)
+        print(f"{name} lazy batch 0: kernel {k_ms:.4f} ms, bound "
+              f"{bound * 1e3:.2f} us ({nb_} B: {what}), {k_ms / bound:.1f}x "
+              f"the bound; plain torch ops {p_dev:.4f} ms device (CUDA "
+              f"graph), {p_host:.2f} ms host wall (best of 3)", flush=True)
+
     # ---- the engine's stages on batch 0 ------------------------------------
-    comp = fm.compact(yp, yl, cand, seq_cap, N_BLOCK)
-    rep = fm.rep_rewrite(tri, *comp, N_BLOCK)
-    merged = fm.merge_chains(comp[0], comp[1], rep, comp[3], seq_cap, N_BLOCK)
     stages = {
         "tri_arrays + 2 hashes + 10 candidate rows":
             lambda: candidates(b0, lens),
         "select_resolve (kernel: lengths, gains, deferral, nxt, walk)":
             lambda: fm.select_resolve(*r_args),
-        "compact": lambda: fm.compact(yp, yl, cand, seq_cap, N_BLOCK),
-        "rep_rewrite": lambda: fm.rep_rewrite(tri, *comp, N_BLOCK),
-        "merge_chains": lambda: fm.merge_chains(comp[0], comp[1], rep,
-                                                comp[3], seq_cap, N_BLOCK),
-        "finish_sequences": lambda: fm.finish_sequences(
-            b0, tri, *merged, lens, seq_cap),
+        "seq_merge (kernel: compact, rep_rewrite, merge_chains)":
+            lambda: fm.seq_merge(*m_args),
+        "finish_sequences (kernel: extension, fields, literals)":
+            lambda: fm.finish_sequences(*f_args),
         "stage A (_analyze, lazy)": lambda: pipeline._analyze(
             b0, lens, cp.hash_log, mls, seq_cap, "lazy"),
+        "stage A with the plain tail": lambda: plain_tail_call(
+            pipeline._analyze, b0, lens, cp.hash_log, mls, seq_cap, "lazy"),
     }
-    # most stages are hundreds of small launches, enqueued slower than the
-    # card runs them: device time (a CUDA graph's replay) and host wall of
-    # one eager call apart
+    # the torch-op stages are hundreds of small launches, enqueued slower
+    # than the card runs them: device time (a CUDA graph's replay) and host
+    # wall of one eager call apart
     stage_ms = {name: graph_ms(fn) for name, fn in stages.items()}
-    wall_ms = {name: host_ms(fn) for name, fn in stages.items()}
-    print("lazy engine stages, batch 0 (ms device / ms host wall): "
+    wall_ms = {name: min(host_ms(fn) for _ in range(3))
+               for name, fn in stages.items()}
+    print("lazy engine stages, batch 0 (ms device / ms host wall of one "
+          "eager call, best of 3): "
           + ", ".join(f"{k} {stage_ms[k]:.4f} / {wall_ms[k]:.2f}"
                       for k in stages), flush=True)
-    # byte bounds of the two JAX while_loops ported as fixed-pass torch ops,
-    # each input read once and each output written once
-    fin = fm.finish_sequences(b0, tri, *merged, lens, seq_cap)
-    bounds = {"rep_rewrite": nbytes(tri, *comp, rep),
-              "finish_sequences": nbytes(b0, tri, *merged, lens,
-                                         *fin.values())}
-    for name, nb in bounds.items():
-        print(f"  {name}: {stage_ms[name]:.4f} ms, bound "
-              f"{nb / HBM_BYTES_PER_S * 1e6:.2f} us ({nb} B)", flush=True)
     print(f"  nb_seq (first 8 blocks) {merged[3][:8].tolist()}", flush=True)
 
     # ---- the main path at level 5 -----------------------------------------
@@ -794,18 +887,58 @@ def lazy_phase(dev, corpus: bytes) -> dict:
     frame2 = pipeline.compress(corpus, level=5, device=dev)
     times.append(time.perf_counter() - t0)
     assert frame2 == frame, "two level-5 runs gave different frames"
+    if len(corpus) == CORPUS_BYTES:
+        assert len(frame) == LEVEL5_FRAME_BYTES, len(frame)
     print(f"level 5: {len(corpus)} B -> {len(frame)} B, ratio "
           f"{len(corpus) / len(frame):.4f}, "
           f"{len(corpus) / min(times) / 1e6:.2f} MB/s (best of 2: "
           f"{times[0]:.3f} s, {times[1]:.3f} s), launches {launches}",
           flush=True)
-    for k in ("lazy_resolve", "fse_chain"):
+    for k in ("lazy_resolve", "fse_chain", "seq_merge", "seq_finish"):
         assert launches[k] > 0, f"kernel {k} was not launched at level 5"
+    batches = -(-len(corpus) // (32 * N_BLOCK))
+    for k in ("seq_merge", "seq_finish"):
+        assert launches[k] == batches, (k, launches[k], batches)
     assert frame_blocks(frame) == len(corpus) // N_BLOCK
     stage_mbps = pipeline.TorchCompressor(
         level=5, device=dev).device_stage_mbps(corpus)
     print(f"level 5 device_stage_mbps: {stage_mbps:.2f}", flush=True)
     profiled_encode(pipeline, dev, corpus, 5)
+
+    # ---- A/B in this call: the tail's kernels against its plain torch ops,
+    # in the order plain, kernels, kernels, plain ----------------------------
+    def encode():
+        return pipeline.compress(corpus, level=5, device=dev)
+
+    plain_tail_call(encode)                                   # warm
+    legs = {"plain tail": [], "kernels": []}
+    for leg in ("plain tail", "kernels", "kernels", "plain tail"):
+        run = encode if leg == "kernels" else \
+            (lambda: plain_tail_call(encode))
+        t0 = time.perf_counter()
+        out = run()
+        legs[leg].append(time.perf_counter() - t0)
+        assert out == frame, f"level 5 with the {leg}: the frame differs"
+    mbps = {leg: len(corpus) / min(t) / 1e6 for leg, t in legs.items()}
+    comp5 = pipeline.TorchCompressor(level=5, device=dev)
+    dsm = {"plain tail": plain_tail_call(comp5.device_stage_mbps, corpus),
+           "kernels": comp5.device_stage_mbps(corpus)}
+    print("level 5 A/B (plain, kernels, kernels, plain): " + "; ".join(
+        f"{leg} {mbps[leg]:.2f} MB/s (best of "
+        f"{', '.join(f'{t:.3f}' for t in legs[leg])} s), device_stage_mbps "
+        f"{dsm[leg]:.2f}" for leg in legs)
+        + f"; frames equal ({len(frame)} B)", flush=True)
+    profiled_encode(pipeline, dev, corpus, 5,
+                    encode=lambda: plain_tail_call(encode),
+                    label="level 5, plain tail")
+    profiled_encode(pipeline, dev, corpus, 5, encode=encode,
+                    label="level 5, kernels")
+    t0 = time.perf_counter()
+    assert device_decoder.device_decompress(frame, device=dev) == corpus, \
+        "level-5 frame: device decode differs"
+    print(f"level-5 frame ({len(frame)} B) decoded on the card by "
+          f"device_decompress in {time.perf_counter() - t0:.3f} s: == corpus",
+          flush=True)
 
     # ---- the 1 MiB prefix: cuda == cpu, and decoded on the card ---------
     prefix = corpus[:PREFIX_BYTES]
@@ -826,13 +959,30 @@ def lazy_phase(dev, corpus: bytes) -> dict:
             print("  decoded on the card by device_decompress: == prefix",
                   flush=True)
 
-    return dict(name="lazy_resolve", route="cuda",
-                source="zstd_tpu_torch/csrc/lazy_resolve.cu",
-                replaces="zstd_tpu/ops/fastmatch.py:179, :429, :493-529, "
-                         ":172",
-                launches=launches["lazy_resolve"], max_abs_err=err, ms=r_ms,
-                plain_ms=r_plain_ms, bound_ms=r_bound, bound_by="bytes",
-                library_ms=None)
+    return [
+        dict(name="lazy_resolve", route="cuda",
+             source="zstd_tpu_torch/csrc/lazy_resolve.cu",
+             replaces="zstd_tpu/ops/fastmatch.py:179, :429, :493-529, :172",
+             launches=launches["lazy_resolve"], max_abs_err=err, ms=r_ms,
+             plain_ms=r_plain_ms, bound_ms=r_bound, bound_by="bytes",
+             library_ms=None),
+        dict(name="seq_merge", route="cuda",
+             source="zstd_tpu_torch/csrc/seq_merge.cu",
+             replaces="zstd_tpu/ops/fastmatch.py:202, :241, :276",
+             launches=launches["seq_merge"],
+             max_abs_err=tail_err["seq_merge"], ms=tail_ms["seq_merge"][0],
+             plain_ms=tail_ms["seq_merge"][1],
+             bound_ms=tail_ms["seq_merge"][2], bound_by="bytes",
+             library_ms=None),
+        dict(name="seq_finish", route="cuda",
+             source="zstd_tpu_torch/csrc/seq_finish.cu",
+             replaces="zstd_tpu/ops/fastmatch.py:320",
+             launches=launches["seq_finish"],
+             max_abs_err=tail_err["seq_finish"], ms=tail_ms["seq_finish"][0],
+             plain_ms=tail_ms["seq_finish"][1],
+             bound_ms=tail_ms["seq_finish"][2], bound_by="bytes",
+             library_ms=None),
+    ]
 
 
 def free_port() -> int:
@@ -2317,7 +2467,7 @@ def main() -> int:
     kernels += decode_phase(dev, corpus, frame, root)
 
     # ---- 7. the lazy engine: level 5 ---------------------------------------
-    kernels.append(lazy_phase(dev, corpus))
+    kernels += lazy_phase(dev, corpus)
 
     # ---- 8. the xla engine and the one-frame sharded encode ----------------
     kernels.append(xla_phase(dev, corpus))

@@ -61,6 +61,19 @@ def test_host_c_is_whole_and_reads_no_environment():
         assert "getenv" not in text, name
 
 
+def test_cuda_sources_are_registered():
+    """Every csrc/*.cu is built (SOURCES), has its C entry points
+    (_SIGNATURES), and each names its kernel's launch counter."""
+    from zstd_tpu_torch import _kernels
+    cuda = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
+    assert sorted(_kernels.SOURCES) == cuda
+    assert sorted(_kernels._SIGNATURES) == cuda
+    assert {"seq_merge.cu", "seq_finish.cu"} <= set(cuda)
+    for src in cuda:
+        assert f"{src[:-3]}_launch" in _kernels._SIGNATURES[src], src
+    assert {"seq_merge", "seq_finish"} <= set(_kernels.LAUNCHES)
+
+
 def test_host_codec_imports_no_torch():
     """pzstd's spawned workers import the host codec without torch; so do
     the dictionary trainers and the seekable format."""

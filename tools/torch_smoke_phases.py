@@ -5,7 +5,10 @@ only those phases changed.
 
     python3 tools/torch_smoke_phases.py ldm pzstd
 
-Phases: "ldm" (phase 9, chip_smoke.ldm_phase), "pzstd" (phase 10,
+Phases: "lazy" (phase 7, chip_smoke.lazy_phase: the lazy engine's three
+kernels against their plain versions, the level-5 encode and its A/B
+against the plain seqstore tail, on the 16 MiB big_corpus), "ldm" (phase
+9, chip_smoke.ldm_phase), "pzstd" (phase 10,
 chip_smoke.pzstd_phase, on the 16 MiB big_corpus), "cli" (phase 12,
 chip_smoke.cli_phase, on the same corpus) and "hostapi" (phase 13,
 chip_smoke.hostapi_phase: the dictionary trainers, the seekable format and
@@ -36,9 +39,17 @@ def main(argv: list[str]) -> int:
     print(chip_smoke.card_line(), flush=True)
     print(f"build: {_kernels.build_all():.1f} s (nvcc), "
           f"{_kernels.build_host():.1f} s (cc)", flush=True)
+    for src, log in _kernels.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {src}: {line.strip()}")
     dev = torch.device("cuda")
     for phase in argv or ["ldm", "pzstd"]:
-        if phase == "ldm":
+        if phase == "lazy":
+            for k in chip_smoke.lazy_phase(
+                    dev, big_corpus(chip_smoke.CORPUS_BYTES)):
+                print(k, flush=True)
+        elif phase == "ldm":
             chip_smoke.ldm_phase(dev)
         elif phase == "pzstd":
             chip_smoke.pzstd_phase(big_corpus(chip_smoke.CORPUS_BYTES))

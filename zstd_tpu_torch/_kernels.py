@@ -26,7 +26,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu",
            "lazy_resolve.cu", "xla_walk.cu", "ldm_fingerprint.cu",
-           "ldm_lookback.cu")
+           "ldm_lookback.cu", "seq_merge.cu", "seq_finish.cu")
 HOST_SOURCES = ("host/cblock.c", "host/decode.c", "host/encode.c",
                 "host/fast.c", "host/huf.c", "host/lazy.c", "host/lz4.c",
                 "host/opt.c", "host/row.c", "host/xxh64.c")
@@ -72,6 +72,10 @@ _SIGNATURES = {
                                                       _P]},
     "ldm_lookback.cu": {"ldm_lookback_launch": [_P, _I, _I, _I, _P, _P,
                                                 _P]},
+    "seq_merge.cu": {"seq_merge_launch": [_P] * 9 + [_I, _I, _I, _I, _P],
+                     "seq_merge_scratch_ints": [_I]},
+    "seq_finish.cu": {"seq_finish_launch": [_P] * 13 + [_I, _I, _I, _P],
+                      "seq_finish_scratch_ints": [_I, _I]},
 }
 # host C entry points: name -> (restype, argtypes)
 _I64 = ctypes.c_int64
@@ -137,7 +141,7 @@ _HOST_SIGNATURES = {
 # kernel (and nowhere else), so a run can show which kernels it went through
 LAUNCHES = {"extract": 0, "fse_chain": 0, "huf_decode": 0, "exec_seq": 0,
             "lazy_resolve": 0, "xla_walk": 0, "ldm_fingerprint": 0,
-            "ldm_lookback": 0}
+            "ldm_lookback": 0, "seq_merge": 0, "seq_finish": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -7,8 +7,10 @@ same-bucket positions, 3-byte compares quantize each candidate's match
 length, a lockstep greedy commit over 512-byte chunks picks the matches
 (`select_resolve`: on a card one launch of csrc/lazy_resolve.cu scores the
 candidates and walks the chunks; on the CPU the plain chain `lazy_mlen` or
-`capped_mlen`, `next_matchable`, `resolve_plain`), and fixed-pass torch ops
-merge, extend and compact them into the seqstore.
+`capped_mlen`, `next_matchable`, `resolve_plain`), and two more launches
+turn them into the seqstore: `seq_merge` (csrc/seq_merge.cu; on the CPU
+`compact`, `rep_rewrite`, `merge_chains`) and `finish_sequences`
+(csrc/seq_finish.cu; on the CPU `finish_sequences_plain`).
 
 - `extract_batch_lazy`, the engine of every level whose strategy is >= 3:
   `LAZY_DEPTH` rows of candidates on the mls hash and 2 on a 4-byte hash,
@@ -23,9 +25,11 @@ constants at their defaults: the economics filter is on
 (`ZSTD_TPU_DEV_ROW_WIDTH` unset). Nothing here takes `emit_from` or
 `halo_ok`: every caller of the JAX engines leaves them at 0 and True.
 
-The JAX `while_loop`s run a fixed number of passes here: each pass carries
-the previous pass's `eq`/`ok` as its `active` mask, so the passes after the
-JAX loop would have stopped change nothing.
+The plain versions run the JAX `while_loop`s of `_rep_rewrite` and
+`_finish_sequences` as a fixed number of passes of torch ops: each pass
+carries the previous pass's `eq`/`ok` as its `active` mask, so the passes
+after the JAX loop would have stopped change nothing. The kernels run each
+sequence's loop in one thread and stop it where the mask goes false.
 """
 
 from __future__ import annotations
@@ -55,6 +59,20 @@ _NO_GAIN = -1e9
 def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
     """a[:, k:] followed by k zeros."""
     return torch.nn.functional.pad(a[:, k:], (0, k)) if k else a
+
+
+def _check_cuda(what, dev, specs):
+    """Raise unless each (name, tensor, dtype, shape) of specs is a
+    contiguous tensor of that dtype and shape on dev, and dev is a CUDA
+    device (a kernel's inputs; checked in that order)."""
+    for name, t, dtype, shape in specs:
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype \
+                or tuple(t.shape) != tuple(shape) or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
+                             f"tensor of shape {tuple(shape)} on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
 
 
 def tri_arrays(blocks: torch.Tensor):
@@ -262,20 +280,13 @@ def select_resolve_stats(blocks, rows, valid_lens, mode: str):
 def _select_resolve_cuda(blocks, rows, valid_lens, mode, steps):
     B, n = blocks.shape
     dev = blocks.device
-    if dev.type != "cuda":
-        raise ValueError(f"select_resolve: unsupported device {dev}")
     if mode not in MODES:
         raise ValueError(f"select_resolve: unknown mode {mode!r}")
     R = LAZY_ROWS if mode == "lazy" else 1
-    for name, t, dtype, shape in (("blocks", blocks, torch.uint8, (B, n)),
-                                  ("rows", rows, torch.int32, (R, B, n)),
-                                  ("valid_lens", valid_lens, torch.int32,
-                                   (B,))):
-        if not isinstance(t, torch.Tensor) or t.dtype != dtype \
-                or tuple(t.shape) != shape or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"select_resolve: {name} must be a contiguous "
-                             f"{dtype} tensor of shape {shape} on {dev}")
+    _check_cuda("select_resolve", dev, (
+        ("blocks", blocks, torch.uint8, (B, n)),
+        ("rows", rows, torch.int32, (R, B, n)),
+        ("valid_lens", valid_lens, torch.int32, (B,))))
     if blocks.data_ptr() % 8:
         raise ValueError("select_resolve: blocks must be 8-byte aligned")
     L = n // RESOLVE_CHUNK
@@ -343,7 +354,8 @@ def compact(yp, yl, cand, seq_cap: int, n: int):
 def rep_rewrite(tri, pos_c, len_c, dist_c, nb, n: int) -> torch.Tensor:
     """The previous sequence's distance where sequence k also matches there
     over its whole length (<= 18, verified in 3-byte windows); the JAX
-    `_rep_rewrite`, its loop as REP_PASSES passes."""
+    `_rep_rewrite`, its loop as REP_PASSES passes of torch ops. A plain
+    step of `seq_merge_plain`; on a card csrc/seq_merge.cu computes it."""
     cap = pos_c.shape[1]
     k = torch.arange(cap, device=pos_c.device)[None, :]
     d_prev = torch.roll(dist_c, 1, dims=1)
@@ -375,12 +387,62 @@ def merge_chains(pos_c, len_c, dist_c, nb, seq_cap: int, n: int):
     return gpos, glen, gdist, gnb
 
 
-def finish_sequences(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
-                     valid_lens, seq_cap: int) -> dict:
+def seq_merge_plain(yp, yl, cand, blocks, tri, seq_cap: int):
+    """`compact`, `rep_rewrite` and `merge_chains` in turn, as torch ops:
+    the merged sequences (pos, len, dist int32[B, seq_cap], nb int32[B])
+    from the resolve's slots. `blocks` gives n; the rewrite reads `tri`."""
+    n = blocks.shape[1]
+    c_pos, c_len, c_dist, c_nb = compact(yp, yl, cand, seq_cap, n)
+    c_dist = rep_rewrite(tri, c_pos, c_len, c_dist, c_nb, n)
+    return merge_chains(c_pos, c_len, c_dist, c_nb, seq_cap, n)
+
+
+def seq_merge(yp, yl, cand, blocks, tri, seq_cap: int):
+    """(pos, len, dist, nb) of `seq_merge_plain`. yp, yl int32[B, L * 160]
+    (L = n // 512) and cand int32[B, n] as `select_resolve` gives them
+    (yp < n where yl > 0), blocks u8[B, n], tri f32[B, n] (its 3-byte
+    words; the kernel compares the bytes). CPU tensors take the plain
+    version; CUDA tensors launch csrc/seq_merge.cu or raise."""
+    if blocks.device.type == "cpu":
+        return seq_merge_plain(yp, yl, cand, blocks, tri, seq_cap)
+    B, n = blocks.shape
+    M = (n // RESOLVE_CHUNK) * RESOLVE_STEPS
+    dev = blocks.device
+    _check_cuda("seq_merge", dev, (
+        ("yp", yp, torch.int32, (B, M)), ("yl", yl, torch.int32, (B, M)),
+        ("cand", cand, torch.int32, (B, n)),
+        ("blocks", blocks, torch.uint8, (B, n)),
+        ("tri", tri, torch.float32, (B, n))))
+    if yp.data_ptr() % 16 or yl.data_ptr() % 16:
+        raise ValueError("seq_merge: yp and yl must be 16-byte aligned")
+    pos = torch.empty((B, seq_cap), dtype=torch.int32, device=dev)
+    ln = torch.empty_like(pos)
+    dist = torch.empty_like(pos)
+    nb = torch.empty((B,), dtype=torch.int32, device=dev)
+    if B == 0:
+        return pos, ln, dist, nb
+    lib = _kernels.get("seq_merge.cu")
+    scratch = torch.empty((B * lib.seq_merge_scratch_ints(seq_cap),),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.seq_merge_launch(
+            yp.data_ptr(), yl.data_ptr(), cand.data_ptr(), blocks.data_ptr(),
+            pos.data_ptr(), ln.data_ptr(), dist.data_ptr(), nb.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else 0, B, n, M, seq_cap,
+            ctypes.c_void_p(stream))
+    _kernels.check(err, "seq_merge_launch")
+    _kernels.LAUNCHES["seq_merge"] += 1
+    return pos, ln, dist, nb
+
+
+def finish_sequences_plain(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
+                           valid_lens, seq_cap: int) -> dict:
     """Exact forward then backward extension of the merged matches and the
-    literal derivation (the JAX `_finish_sequences`; its four loops as
-    EXT3, EXT1, BACK3 and BACK1 passes). Returns the seqstore: nb_seq, ll,
-    off, ml, lit_idx (n - 1 past nb_lit), nb_lit, overflow."""
+    literal derivation, as torch ops (the JAX `_finish_sequences`; its four
+    loops as EXT3, EXT1, BACK3 and BACK1 passes). Returns the seqstore:
+    nb_seq, ll, off, ml, lit_idx (n - 1 past nb_lit), nb_lit, overflow. The
+    plain version of `finish_sequences` (csrc/seq_finish.cu on a card)."""
     B, n = blocks.shape
     dev = blocks.device
     k = torch.arange(seq_cap, device=dev)[None, :]
@@ -459,14 +521,59 @@ def finish_sequences(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
                 overflow=nb_seq >= seq_cap)
 
 
+def finish_sequences(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
+                     valid_lens, seq_cap: int) -> dict:
+    """The seqstore of `finish_sequences_plain` from the merged sequences:
+    blocks u8[B, n], tri f32[B, n] (its 3-byte words; the kernel compares
+    the bytes), seq_pos, seq_len, seq_off int32[B, seq_cap], nb_seq and
+    valid_lens int32[B] (nb_seq <= seq_cap, valid_len <= n, as
+    `seq_merge` gives them). CPU tensors take the plain version; CUDA
+    tensors launch csrc/seq_finish.cu or raise."""
+    if blocks.device.type == "cpu":
+        return finish_sequences_plain(blocks, tri, seq_pos, seq_len, seq_off,
+                                      nb_seq, valid_lens, seq_cap)
+    B, n = blocks.shape
+    dev = blocks.device
+    _check_cuda("finish_sequences", dev, (
+        ("blocks", blocks, torch.uint8, (B, n)),
+        ("tri", tri, torch.float32, (B, n)),
+        ("seq_pos", seq_pos, torch.int32, (B, seq_cap)),
+        ("seq_len", seq_len, torch.int32, (B, seq_cap)),
+        ("seq_off", seq_off, torch.int32, (B, seq_cap)),
+        ("nb_seq", nb_seq, torch.int32, (B,)),
+        ("valid_lens", valid_lens, torch.int32, (B,))))
+    out = dict(nb_seq=nb_seq)
+    for name in ("ll", "off", "ml"):
+        out[name] = torch.empty((B, seq_cap), dtype=torch.int32, device=dev)
+    out["lit_idx"] = torch.empty((B, n), dtype=torch.int32, device=dev)
+    out["nb_lit"] = torch.empty((B,), dtype=torch.int32, device=dev)
+    out["overflow"] = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return out
+    lib = _kernels.get("seq_finish.cu")
+    scratch = torch.empty((B * lib.seq_finish_scratch_ints(n, seq_cap),),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.seq_finish_launch(
+            blocks.data_ptr(), seq_pos.data_ptr(), seq_len.data_ptr(),
+            seq_off.data_ptr(), nb_seq.data_ptr(), valid_lens.data_ptr(),
+            out["ll"].data_ptr(), out["off"].data_ptr(), out["ml"].data_ptr(),
+            out["lit_idx"].data_ptr(), out["nb_lit"].data_ptr(),
+            out["overflow"].data_ptr(),
+            scratch.data_ptr() if scratch.numel() else 0, B, n, seq_cap,
+            ctypes.c_void_p(stream))
+    _kernels.check(err, "seq_finish_launch")
+    _kernels.LAUNCHES["seq_finish"] += 1
+    return out
+
+
 def _seqstore(blocks, tri, rows, valid_lens, seq_cap, mode):
-    """The shared back half of both engines: lengths, selection and resolve,
-    compact, repcode rewrite, chain merge, extension and literals."""
-    n = blocks.shape[1]
+    """The shared back half of both engines: lengths, selection and resolve
+    (`select_resolve`), compact, repcode rewrite and chain merge
+    (`seq_merge`), extension and literals (`finish_sequences`)."""
     yp, yl, cand = select_resolve(blocks, rows, valid_lens, mode)
-    c_pos, c_len, c_dist, c_nb = compact(yp, yl, cand, seq_cap, n)
-    c_dist = rep_rewrite(tri, c_pos, c_len, c_dist, c_nb, n)
-    seq = merge_chains(c_pos, c_len, c_dist, c_nb, seq_cap, n)
+    seq = seq_merge(yp, yl, cand, blocks, tri, seq_cap)
     return finish_sequences(blocks, tri, *seq, valid_lens, seq_cap)
 
 
