@@ -18,10 +18,11 @@ over-read, literal-overrun and depth errors; the fixture frames of
 tests/data/torch_decode), and drives the lazy engine (phase 7: the fused
 scoring-and-resolve kernel against its plain chain in the lazy and v3
 modes, the seqstore tail's two kernels, seq_merge and seq_finish, against
-their plain torch ops, the 16 MiB level-5 encode with its profile and
-stage times and an A/B against the plain tail, the 1 MiB prefix's frames
-at levels 5 and 9 and under the v3 engine against the CPU path, and the
-level-5 frame decoded on the card), drives the xla
+their plain torch ops at each cluster size they launch (2-4 CTAs a row),
+with each size's time and per-phase SM cycles, the 16 MiB level-5 encode
+with its profile and stage times and an A/B against the plain tail, the
+1 MiB prefix's frames at levels 5 and 9 and under the v3 engine against the
+CPU path, and the level-5 frame decoded on the card), drives the xla
 engine and the sharded encode (phase 8: the xla_walk kernel, from the
 candidates to the seqstore and the literal index in one launch, against
 its plain chain and its counts against tests/xlaextractmodel.py, the 16 MiB
@@ -198,6 +199,103 @@ def print_chain(stats, rows: int) -> None:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def sector_bytes(mask, itemsize: int) -> int:
+    """Bytes of the 32-byte sectors that hold the entries `mask` marks
+    (bool[B, k], one entry an element of `itemsize` bytes, rows stored one
+    after another): the least a gather of just those entries moves."""
+    import torch
+    per = 32 // itemsize
+    B, k = mask.shape
+    pad = torch.zeros((B, -k % per), dtype=torch.bool, device=mask.device)
+    cells = torch.cat([mask, pad], dim=1).view(B, -1, per)
+    return int(cells.any(dim=2).sum()) * 32
+
+
+def range_mask(n: int, starts, stops):
+    """bool[B, n]: the positions of a row inside any [start, stop) of its
+    row of starts and stops (int[B, k]; clipped to [0, n], empty where
+    stop <= start)."""
+    import torch
+    a = starts.clamp(0, n).long()
+    z = stops.clamp(0, n).long()
+    keep = z > a
+    delta = torch.zeros((a.shape[0], n + 1), dtype=torch.int32,
+                        device=a.device)
+    delta.scatter_add_(1, torch.where(keep, a, n), keep.int())
+    delta.scatter_add_(1, torch.where(keep, z, n), -keep.int())
+    return torch.cumsum(delta, dim=1)[:, :n] > 0
+
+
+def merge_reads(yp, yl, cand, seq_cap: int, n: int):
+    """(bool[B, n] of cand, bool[B, n] of the row's bytes): what
+    seq_merge_plain's outputs depend on besides yp and yl. cand at the
+    valid slots' positions; the bytes at the rewrite's candidate groups
+    (length <= 18, both sides, in whole 3-byte words)."""
+    import torch
+    from zstd_tpu_torch.ops import fastmatch as fm
+    B = yp.shape[0]
+    at = torch.zeros((B, n + 1), dtype=torch.bool, device=yp.device)
+    at.scatter_(1, torch.where(yl > 0, yp, n).long(), True)
+    pos, ln, dist, nb = fm.compact(yp, yl, cand, seq_cap, n)
+    k = torch.arange(seq_cap, device=yp.device)[None, :]
+    d_prev = torch.roll(dist, 1, dims=1)
+    rewrite = (k < nb[:, None]) & (k > 0) & (d_prev > 0) \
+        & (dist != d_prev) & (pos - d_prev >= 0) & (ln <= 18)
+    starts = torch.cat([pos, pos - d_prev], dim=1)
+    stops = starts + torch.cat([(ln + 2) // 3 * 3] * 2, dim=1)
+    keep = torch.cat([rewrite] * 2, dim=1)
+    return at[:, :n], range_mask(n, torch.where(keep, starts, 0),
+                                 torch.where(keep, stops, 0))
+
+
+def merge_bytes(yp, yl, cand, blocks, merged, seq_cap: int) -> int:
+    """The bytes seq_merge must move on these slots: yp and yl read whole,
+    cand and the row's bytes only where `merge_reads` marks them, at
+    32-byte sectors; pos, len, dist and nb written."""
+    at, read = merge_reads(yp, yl, cand, seq_cap, blocks.shape[1])
+    return (nbytes(yp, yl, *merged) + sector_bytes(at, 4)
+            + sector_bytes(read, 1))
+
+
+def finish_reads(merged, valid_lens, fin, n: int):
+    """bool[B, n]: the row's bytes finish_sequences_plain's outputs depend
+    on, where an extension compares (forward from each end to one past its
+    final end inside its room, backward from one below its final start,
+    not below the previous end, up to its start; both sides), from the
+    merged sequences and the finished fields."""
+    import torch
+    pos, ln, dist, nb = merged
+    k = torch.arange(pos.shape[1], device=pos.device)[None, :]
+    vm = k < nb[:, None]
+    end = torch.cumsum(torch.where(vm, fin["ll"] + fin["ml"], 0), dim=1)
+    sp = end - fin["ml"]
+    pe = torch.where(k == 0, 0, torch.roll(end, 1, dims=1))
+    nxt = torch.where(k + 1 < nb[:, None], torch.roll(pos, -1, dims=1),
+                      valid_lens.clamp(max=n)[:, None])
+    f0, f1 = pos + ln, torch.minimum(end + 1, nxt)
+    b0 = torch.maximum(sp - 1, pe)
+    starts = torch.cat([f0, f0 - dist, b0, b0 - dist], dim=1)
+    stops = torch.cat([f1, f1 - dist, pos, pos - dist], dim=1)
+    keep = torch.cat([vm] * 4, dim=1)
+    return range_mask(n, torch.where(keep, starts, 0),
+                      torch.where(keep, stops, 0))
+
+
+def finish_bytes(blocks, merged, valid_lens, fin) -> int:
+    """The bytes finish_sequences must move: pos, len and dist read at the
+    first nb sequences, nb and valid_lens, the row's bytes where
+    `finish_reads` marks them, at 32-byte sectors; ll, off, ml, lit_idx,
+    nb_lit and overflow written whole."""
+    import torch
+    pos, nb = merged[0], merged[3]
+    vm = torch.arange(pos.shape[1], device=pos.device)[None, :] \
+        < nb[:, None]
+    read = finish_reads(merged, valid_lens, fin, blocks.shape[1])
+    return (sector_bytes(read, 1) + 3 * sector_bytes(vm, 4)
+            + nbytes(nb, valid_lens,
+                     *(fin[k] for k in SEQSTORE_KEYS[1:])))
 
 
 # finish_sequences' seqstore, in the order its kernel is compared
@@ -691,8 +789,10 @@ def lazy_phase(dev, corpus: bytes) -> list:
     random and short-valid_len rows, in v3 mode on batch 0 and the short
     rows, with its active steps a chunk, and on each of those slot sets the
     seqstore tail's kernels, seq_merge and seq_finish, against their plain
-    torch ops (also at seq_cap 64 on lazy batch 0, where compact drops
-    groups, and on rows of 262,144 and 9,001 B); each kernel's time, bound and its plain version's; each stage
+    torch ops at 2, 3 and 4 CTAs a row (also at seq_cap 64 on lazy batch 0,
+    where compact drops groups, and on rows of 262,144 and 9,001 B); each
+    kernel's time (at each cluster size and at the wrappers' choice, with
+    each phase's SM cycles), bound and its plain version's; each stage
     of the engine on batch 0; the 16 MiB level-5 encode (launches, rate,
     profile) and its A/B against the plain tail in this call; the 1 MiB
     prefix's frames at levels 5 and 9 (hash_log 21) and under the v3 engine
@@ -733,27 +833,46 @@ def lazy_phase(dev, corpus: bytes) -> list:
 
     def check_tail(blocks, tri, yp, yl, cand, c_lens, cap, label):
         """seq_merge and seq_finish against their plain versions on one
-        set of slots (both finishes on the merged sequences, once the two
-        merges agree)."""
-        merged = fm.seq_merge(yp, yl, cand, blocks, tri, cap)
-        torch.cuda.synchronize()
+        set of slots: through the wrappers the main path calls (their own
+        cluster size, no cycle stamps) and at each cluster size they can
+        launch (2-4 CTAs a row, through the `*_cycles` entry points that
+        take the size); every finish on the kernel's merged sequences, once
+        they equal the plain merge's."""
         want_m = fm.seq_merge_plain(yp, yl, cand, blocks, tri, cap)
-        e_m = max_abs_err(merged, want_m)
-        assert e_m == 0, f"seq_merge kernel disagrees with its plain ({label})"
-        fin = fm.finish_sequences(blocks, tri, *merged, c_lens, cap)
-        torch.cuda.synchronize()
-        want_f = fm.finish_sequences_plain(blocks, tri, *merged, c_lens, cap)
-        e_f = max_abs_err(tuple(fin[k] for k in SEQSTORE_KEYS),
-                          tuple(want_f[k] for k in SEQSTORE_KEYS))
+        want_f = None
+        B, n = blocks.shape
+        chosen = (fm.tail_ctas("seq_merge", B, n, cap, dev),
+                  fm.tail_ctas("seq_finish", B, n, cap, dev))
+        errs = []
+        for c in (None, *_kernels.CTAS):
+            merged = fm.seq_merge(yp, yl, cand, blocks, tri, cap) \
+                if c is None else fm.seq_merge_cycles(yp, yl, cand, blocks,
+                                                      tri, cap, ctas=c)[0]
+            torch.cuda.synchronize()
+            e_m = max_abs_err(merged, want_m)
+            assert e_m == 0, \
+                f"seq_merge kernel disagrees with its plain ({label}, C {c})"
+            if want_f is None:
+                want_f = fm.finish_sequences_plain(blocks, tri, *merged,
+                                                   c_lens, cap)
+            fin = fm.finish_sequences(blocks, tri, *merged, c_lens, cap) \
+                if c is None else fm.finish_sequences_cycles(
+                    blocks, tri, *merged, c_lens, cap, ctas=c)[0]
+            torch.cuda.synchronize()
+            e_f = max_abs_err(tuple(fin[k] for k in SEQSTORE_KEYS),
+                              tuple(want_f[k] for k in SEQSTORE_KEYS))
+            assert e_f == 0, \
+                f"seq_finish kernel disagrees with its plain ({label}, C {c})"
+            errs.append(f"{'wrappers' if c is None else f'C {c}'}: "
+                        f"{e_m}, {e_f}")
+            tail_err["seq_merge"] = max(tail_err["seq_merge"], e_m)
+            tail_err["seq_finish"] = max(tail_err["seq_finish"], e_f)
         print(f"  seq_merge, seq_finish {label} (seq_cap {cap}): max_abs_err "
-              f"{e_m} (pos, len, dist, nb), {e_f} ({', '.join(SEQSTORE_KEYS)}"
-              f"); nb_seq {merged[3].tolist()[:4]}, nb_lit "
-              f"{fin['nb_lit'].tolist()[:4]}, overflow "
-              f"{int(fin['overflow'].sum())} of {blocks.shape[0]} rows",
-              flush=True)
-        assert e_f == 0, f"seq_finish kernel disagrees with its plain ({label})"
-        tail_err["seq_merge"] = max(tail_err["seq_merge"], e_m)
-        tail_err["seq_finish"] = max(tail_err["seq_finish"], e_f)
+              f"(pos, len, dist, nb; {', '.join(SEQSTORE_KEYS)}) "
+              f"{'; '.join(errs)} (the wrappers choose C {chosen[0]}, "
+              f"{chosen[1]}); nb_seq {want_m[3].tolist()[:4]}, nb_lit "
+              f"{want_f['nb_lit'].tolist()[:4]}, overflow "
+              f"{int(want_f['overflow'].sum())} of {B} rows", flush=True)
 
     for (mode, name), case in cases.items():
         if not isinstance(case, tuple):
@@ -820,32 +939,87 @@ def lazy_phase(dev, corpus: bytes) -> list:
     merged = fm.seq_merge(*m_args)
     f_args = (b0, tri, *merged, lens, seq_cap)
     fin = fm.finish_sequences(*f_args)
-    # each input read once, each output written once (the kernels read the
-    # bytes, not the tri words; nb_seq passes through finish_sequences)
+    # what each call must move on this run's data (merge_bytes,
+    # finish_bytes: the gathered inputs only where read, at 32-byte sectors;
+    # the kernels read the bytes, not the tri words; nb_seq passes through
+    # finish_sequences); kernel(c) at c CTAs a row (the wrapper's own choice
+    # for None)
     tail = {
-        "seq_merge": (lambda: fm.seq_merge(*m_args),
+        "seq_merge": (lambda c: fm.seq_merge(*m_args) if c is None else
+                      fm.seq_merge_cycles(*m_args, ctas=c)[0],
                       lambda: fm.seq_merge_plain(*m_args),
-                      nbytes(yp, yl, cand, b0, *merged),
-                      "yp, yl, cand, blocks read; pos, len, dist, nb "
-                      "written"),
-        "seq_finish": (lambda: fm.finish_sequences(*f_args),
+                      lambda: fm.seq_merge_cycles(*m_args)[1],
+                      fm.MERGE_STAMPS,
+                      merge_bytes(yp, yl, cand, b0, merged, seq_cap),
+                      "yp, yl read; cand at the valid slots, blocks at the "
+                      "rewrite's candidates; pos, len, dist, nb written"),
+        "seq_finish": (lambda c: fm.finish_sequences(*f_args) if c is None
+                       else fm.finish_sequences_cycles(*f_args, ctas=c)[0],
                        lambda: fm.finish_sequences_plain(*f_args),
-                       nbytes(b0, *merged, lens,
-                              *(fin[k] for k in SEQSTORE_KEYS[1:])),
-                       "blocks, pos, len, dist, nb, valid_lens read; ll, "
-                       "off, ml, lit_idx, nb_lit, overflow written"),
+                       lambda: fm.finish_sequences_cycles(*f_args)[1],
+                       fm.FINISH_STAMPS,
+                       finish_bytes(b0, merged, lens, fin),
+                       "pos, len, dist to nb, nb, valid_lens read, blocks "
+                       "where the extensions compare; ll, off, ml, lit_idx, "
+                       "nb_lit, overflow written"),
     }
     tail_ms = {}
-    for name, (kernel, plain, nb_, what) in tail.items():
-        k_ms = cuda_ms(kernel)
+    for name, (kernel, plain, cycles, stamps, nb_, what) in tail.items():
+        c_ms = {c: cuda_ms(lambda: kernel(c)) for c in _kernels.CTAS}
+        ctas = fm.tail_ctas(name, 32, N_BLOCK, seq_cap, dev)
+        k_ms = cuda_ms(lambda: kernel(None))
         p_dev = graph_ms(plain)
         p_host = min(host_ms(plain) for _ in range(3))
         bound = nb_ / HBM_BYTES_PER_S * 1e3
-        tail_ms[name] = (k_ms, p_host, bound)
-        print(f"{name} lazy batch 0: kernel {k_ms:.4f} ms, bound "
-              f"{bound * 1e3:.2f} us ({nb_} B: {what}), {k_ms / bound:.1f}x "
-              f"the bound; plain torch ops {p_dev:.4f} ms device (CUDA "
-              f"graph), {p_host:.2f} ms host wall (best of 3)", flush=True)
+        tail_ms[name] = (k_ms, p_host, bound, ctas)
+        clusters = fm.tail_clusters(name, N_BLOCK, seq_cap, dev)
+        held = fm.tail_held(name, N_BLOCK, seq_cap)
+        print(f"{name} lazy batch 0: kernel {k_ms:.4f} ms at C {ctas} "
+              f"(clusters the card holds at C 2-4: {clusters}, the row in "
+              f"shared memory: {held}; by C: "
+              + ", ".join(f"{c} {t:.4f}" for c, t in c_ms.items())
+              + f" ms), bound {bound * 1e3:.2f} us ({nb_} B: {what}), "
+              f"{k_ms / bound:.1f}x the bound; plain torch ops {p_dev:.4f} "
+              f"ms device (CUDA graph), {p_host:.2f} ms host wall (best of "
+              f"3)", flush=True)
+        # each phase's SM cycles a CTA: the median over the CTAs, and the
+        # slowest CTA's end of it (after a launch that warms L2, as the
+        # resolve leaves it on the main path)
+        kernel(ctas)
+        ends = cycles().double()
+        spans = torch.diff(ends, dim=2,
+                           prepend=torch.zeros_like(ends[..., :1]))
+        med = spans.flatten(0, 1).median(dim=0).values.tolist()
+        last = ends.flatten(0, 1).max(dim=0).values.tolist()
+        print(f"  {name} phases at C {ctas} (SM cycles, median a CTA / the "
+              "slowest CTA's end): " + ", ".join(
+                  f"{k} {m:.0f} / {e:.0f}"
+                  for k, m, e in zip(stamps, med, last)), flush=True)
+    # batches of 64 and 128 rows (batch_blocks 64 and 128 give them): batch
+    # 0 repeated, at each C and at the wrappers' choice, which skips a size
+    # that would read the row from device memory (tail_held)
+    for reps in (2, 4):
+        big_m = (*(t.repeat(reps, 1) for t in m_args[:5]), seq_cap)
+        big_merged = fm.seq_merge(*big_m)
+        big_f = (big_m[3], big_m[4], *big_merged, lens.repeat(reps), seq_cap)
+        big_fin = fm.finish_sequences(*big_f)
+        assert all(torch.equal(x, y.repeat(reps, *([1] * (y.dim() - 1))))
+                   for x, y in zip(big_merged, merged)), "seq_merge at B"
+        assert all(torch.equal(big_fin[k], fin[k].repeat(
+            reps, *([1] * (fin[k].dim() - 1)))) for k in SEQSTORE_KEYS), \
+            "seq_finish at B"
+        for name, wrap, at_c in (
+                ("seq_merge", lambda: fm.seq_merge(*big_m),
+                 lambda c: fm.seq_merge_cycles(*big_m, ctas=c)),
+                ("seq_finish", lambda: fm.finish_sequences(*big_f),
+                 lambda c: fm.finish_sequences_cycles(*big_f, ctas=c))):
+            by_c = {c: cuda_ms(lambda: at_c(c)) for c in _kernels.CTAS}
+            print(f"{name} at B = {32 * reps} (batch 0 repeated; outputs == "
+                  f"batch 0's): wrappers {cuda_ms(wrap):.4f} ms at C "
+                  f"{fm.tail_ctas(name, 32 * reps, N_BLOCK, seq_cap, dev)}; "
+                  "by C: " + ", ".join(f"{c} {t:.4f}"
+                                       for c, t in by_c.items()) + " ms",
+                  flush=True)
 
     # ---- the engine's stages on batch 0 ------------------------------------
     stages = {
@@ -973,7 +1147,7 @@ def lazy_phase(dev, corpus: bytes) -> list:
              max_abs_err=tail_err["seq_merge"], ms=tail_ms["seq_merge"][0],
              plain_ms=tail_ms["seq_merge"][1],
              bound_ms=tail_ms["seq_merge"][2], bound_by="bytes",
-             library_ms=None),
+             library_ms=None, ctas=tail_ms["seq_merge"][3]),
         dict(name="seq_finish", route="cuda",
              source="zstd_tpu_torch/csrc/seq_finish.cu",
              replaces="zstd_tpu/ops/fastmatch.py:320",
@@ -981,7 +1155,7 @@ def lazy_phase(dev, corpus: bytes) -> list:
              max_abs_err=tail_err["seq_finish"], ms=tail_ms["seq_finish"][0],
              plain_ms=tail_ms["seq_finish"][1],
              bound_ms=tail_ms["seq_finish"][2], bound_by="bytes",
-             library_ms=None),
+             library_ms=None, ctas=tail_ms["seq_finish"][3]),
     ]
 
 

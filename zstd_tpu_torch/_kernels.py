@@ -72,10 +72,12 @@ _SIGNATURES = {
                                                       _P]},
     "ldm_lookback.cu": {"ldm_lookback_launch": [_P, _I, _I, _I, _P, _P,
                                                 _P]},
-    "seq_merge.cu": {"seq_merge_launch": [_P] * 9 + [_I, _I, _I, _I, _P],
-                     "seq_merge_scratch_ints": [_I]},
-    "seq_finish.cu": {"seq_finish_launch": [_P] * 13 + [_I, _I, _I, _P],
-                      "seq_finish_scratch_ints": [_I, _I]},
+    "seq_merge.cu": {"seq_merge_launch": [_P] * 10 + [_I] * 5 + [_P],
+                     "seq_merge_scratch_ints": [_I] * 4,
+                     "seq_merge_max_clusters": [_I] * 4},
+    "seq_finish.cu": {"seq_finish_launch": [_P] * 14 + [_I] * 4 + [_P],
+                      "seq_finish_scratch_ints": [_I, _I, _I],
+                      "seq_finish_max_clusters": [_I, _I, _I]},
 }
 # host C entry points: name -> (restype, argtypes)
 _I64 = ctypes.c_int64
@@ -142,6 +144,30 @@ _HOST_SIGNATURES = {
 LAUNCHES = {"extract": 0, "fse_chain": 0, "huf_decode": 0, "exec_seq": 0,
             "lazy_resolve": 0, "xla_walk": 0, "ldm_fingerprint": 0,
             "ldm_lookback": 0, "seq_merge": 0, "seq_finish": 0}
+
+CTAS = (2, 3, 4)   # the cluster sizes of the kernels that run a row on C CTAs
+
+
+def fewest_waves(B: int, clusters, held=None) -> int:
+    """CTAs a row (one of CTAS) for a launch of B rows, from the clusters of
+    each size that the card holds at once (`clusters`, in CTAS' order; a
+    count <= 0 rules its size out): a row's work is cut by C, and rows past
+    the clusters the card holds run in later waves, so the fewest
+    ceil(B / clusters) / C, the larger C on a tie. `held` (in CTAS' order,
+    optional) says at which sizes the kernel keeps its row in shared
+    memory: where some size does, a size that reads the row from device
+    memory is ruled out, since waves do not weigh that slower route."""
+    if held is not None and any(h and m > 0 for h, m in zip(held, clusters)):
+        clusters = [m if h else 0 for m, h in zip(clusters, held)]
+    best, cost = CTAS[0], None
+    for c, m in zip(CTAS, clusters):
+        if m <= 0:
+            continue
+        k = -(-B // m) / c
+        if cost is None or k <= cost:
+            best, cost = c, k
+    return best
+
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

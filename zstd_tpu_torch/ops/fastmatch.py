@@ -35,6 +35,7 @@ sequence's loop in one thread and stop it where the mask goes false.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -397,14 +398,85 @@ def seq_merge_plain(yp, yl, cand, blocks, tri, seq_cap: int):
     return merge_chains(c_pos, c_len, c_dist, c_nb, seq_cap, n)
 
 
+_TAIL_CLUSTERS: dict = {}
+
+
+def tail_ctas(kernel: str, B: int, n: int, seq_cap: int, device) -> int:
+    """CTAs a row (2-4) for a launch of `kernel` ("seq_merge" or
+    "seq_finish") over B rows of n bytes at seq_cap:
+    `_kernels.fewest_waves` of `tail_clusters`, among the sizes that hold
+    the row in shared memory where any does (`tail_held`)."""
+    return _kernels.fewest_waves(B, tail_clusters(kernel, n, seq_cap, device),
+                                 tail_held(kernel, n, seq_cap))
+
+
+def tail_clusters(kernel: str, n: int, seq_cap: int, device) -> list:
+    """The clusters of 2, 3 and 4 CTAs that the card holds at once for
+    `kernel` on rows of n bytes at seq_cap (its occupancy query, once per
+    device and shape)."""
+    key = (kernel, torch.device(device).index, n, seq_cap)
+    if key not in _TAIL_CLUSTERS:
+        lib = _kernels.get(kernel + ".cu")
+        if kernel == "seq_merge":
+            M = (n // RESOLVE_CHUNK) * RESOLVE_STEPS
+            query = functools.partial(lib.seq_merge_max_clusters, n, M)
+        else:
+            query = functools.partial(lib.seq_finish_max_clusters, n)
+        with torch.cuda.device(device):
+            _TAIL_CLUSTERS[key] = [query(seq_cap, c) for c in _kernels.CTAS]
+    return _TAIL_CLUSTERS[key]
+
+
+def tail_held(kernel: str, n: int, seq_cap: int) -> list:
+    """Whether `kernel` keeps a row of n bytes at seq_cap in shared memory
+    at 2, 3 and 4 CTAs a row (no global scratch: the faster route)."""
+    lib = _kernels.get(kernel + ".cu")
+    if kernel == "seq_merge":
+        M = (n // RESOLVE_CHUNK) * RESOLVE_STEPS
+        return [lib.seq_merge_scratch_ints(n, M, seq_cap, c) == 0
+                for c in _kernels.CTAS]
+    return [lib.seq_finish_scratch_ints(n, seq_cap, c) == 0
+            for c in _kernels.CTAS]
+
+
+# the phases a CTA of each tail kernel reports the end of, in SM cycles
+# from its start (`seq_merge_cycles`, `finish_sequences_cycles`)
+MERGE_STAMPS = ("stage", "pass 1", "exchange 1", "pass 2", "groups placed",
+                "rewrite", "merge starts", "exchange 2", "writes")
+FINISH_STAMPS = ("stage", "forward", "backward", "local ranks", "exchange",
+                 "lit_idx")
+
+
+def _cycles_args(name: str, blocks, ctas) -> None:
+    if blocks.device.type == "cpu":
+        raise ValueError(f"{name}_cycles: the cycles come from the CUDA "
+                         f"kernel; CPU tensors take {name}")
+    if ctas is not None and ctas not in _kernels.CTAS:
+        raise ValueError(f"{name}_cycles: ctas must be one of "
+                         f"{_kernels.CTAS}, not {ctas!r}")
+
+
 def seq_merge(yp, yl, cand, blocks, tri, seq_cap: int):
     """(pos, len, dist, nb) of `seq_merge_plain`. yp, yl int32[B, L * 160]
     (L = n // 512) and cand int32[B, n] as `select_resolve` gives them
     (yp < n where yl > 0), blocks u8[B, n], tri f32[B, n] (its 3-byte
     words; the kernel compares the bytes). CPU tensors take the plain
-    version; CUDA tensors launch csrc/seq_merge.cu or raise."""
+    version; CUDA tensors launch csrc/seq_merge.cu (clusters of
+    `tail_ctas` CTAs a row) or raise."""
     if blocks.device.type == "cpu":
         return seq_merge_plain(yp, yl, cand, blocks, tri, seq_cap)
+    return _seq_merge_cuda(yp, yl, cand, blocks, tri, seq_cap, None)[0]
+
+
+def seq_merge_cycles(yp, yl, cand, blocks, tri, seq_cap: int, ctas=None):
+    """`seq_merge` on CUDA tensors at `ctas` CTAs a row (2-4; `tail_ctas`
+    by default), and int64[B, C, len(MERGE_STAMPS)]: each CTA's SM cycles
+    from its start to the end of each phase."""
+    _cycles_args("seq_merge", blocks, ctas)
+    return _seq_merge_cuda(yp, yl, cand, blocks, tri, seq_cap, ctas, True)
+
+
+def _seq_merge_cuda(yp, yl, cand, blocks, tri, seq_cap, ctas, cycles=False):
     B, n = blocks.shape
     M = (n // RESOLVE_CHUNK) * RESOLVE_STEPS
     dev = blocks.device
@@ -415,25 +487,30 @@ def seq_merge(yp, yl, cand, blocks, tri, seq_cap: int):
         ("tri", tri, torch.float32, (B, n))))
     if yp.data_ptr() % 16 or yl.data_ptr() % 16:
         raise ValueError("seq_merge: yp and yl must be 16-byte aligned")
-    pos = torch.empty((B, seq_cap), dtype=torch.int32, device=dev)
-    ln = torch.empty_like(pos)
-    dist = torch.empty_like(pos)
-    nb = torch.empty((B,), dtype=torch.int32, device=dev)
+    out = tuple(torch.empty((B, seq_cap), dtype=torch.int32, device=dev)
+                for _ in range(3)) \
+        + (torch.empty((B,), dtype=torch.int32, device=dev),)
     if B == 0:
-        return pos, ln, dist, nb
+        return out, torch.zeros((0, 0, len(MERGE_STAMPS)), dtype=torch.int64,
+                                device=dev)
     lib = _kernels.get("seq_merge.cu")
-    scratch = torch.empty((B * lib.seq_merge_scratch_ints(seq_cap),),
-                          dtype=torch.int32, device=dev)
+    ctas = ctas or tail_ctas("seq_merge", B, n, seq_cap, dev)
+    stamps = torch.zeros((B, ctas, len(MERGE_STAMPS)), dtype=torch.int64,
+                         device=dev) if cycles else None
+    scratch = torch.empty(
+        B * lib.seq_merge_scratch_ints(n, M, seq_cap, ctas),
+        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.seq_merge_launch(
             yp.data_ptr(), yl.data_ptr(), cand.data_ptr(), blocks.data_ptr(),
-            pos.data_ptr(), ln.data_ptr(), dist.data_ptr(), nb.data_ptr(),
-            scratch.data_ptr() if scratch.numel() else 0, B, n, M, seq_cap,
-            ctypes.c_void_p(stream))
+            *(t.data_ptr() for t in out),
+            scratch.data_ptr() if scratch.numel() else 0,
+            0 if stamps is None else stamps.data_ptr(), B, n, M, seq_cap,
+            ctas, ctypes.c_void_p(stream))
     _kernels.check(err, "seq_merge_launch")
     _kernels.LAUNCHES["seq_merge"] += 1
-    return pos, ln, dist, nb
+    return out, stamps
 
 
 def finish_sequences_plain(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
@@ -528,10 +605,27 @@ def finish_sequences(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
     the bytes), seq_pos, seq_len, seq_off int32[B, seq_cap], nb_seq and
     valid_lens int32[B] (nb_seq <= seq_cap, valid_len <= n, as
     `seq_merge` gives them). CPU tensors take the plain version; CUDA
-    tensors launch csrc/seq_finish.cu or raise."""
+    tensors launch csrc/seq_finish.cu (clusters of `tail_ctas` CTAs a row)
+    or raise."""
     if blocks.device.type == "cpu":
         return finish_sequences_plain(blocks, tri, seq_pos, seq_len, seq_off,
                                       nb_seq, valid_lens, seq_cap)
+    return _finish_cuda(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
+                        valid_lens, seq_cap, None)[0]
+
+
+def finish_sequences_cycles(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
+                            valid_lens, seq_cap: int, ctas=None):
+    """`finish_sequences` on CUDA tensors at `ctas` CTAs a row (2-4;
+    `tail_ctas` by default), and int64[B, C, len(FINISH_STAMPS)]: each
+    CTA's SM cycles from its start to the end of each phase."""
+    _cycles_args("finish_sequences", blocks, ctas)
+    return _finish_cuda(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
+                        valid_lens, seq_cap, ctas, True)
+
+
+def _finish_cuda(blocks, tri, seq_pos, seq_len, seq_off, nb_seq, valid_lens,
+                 seq_cap, ctas, cycles=False):
     B, n = blocks.shape
     dev = blocks.device
     _check_cuda("finish_sequences", dev, (
@@ -549,9 +643,13 @@ def finish_sequences(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
     out["nb_lit"] = torch.empty((B,), dtype=torch.int32, device=dev)
     out["overflow"] = torch.empty((B,), dtype=torch.bool, device=dev)
     if B == 0:
-        return out
+        return out, torch.zeros((0, 0, len(FINISH_STAMPS)),
+                                dtype=torch.int64, device=dev)
     lib = _kernels.get("seq_finish.cu")
-    scratch = torch.empty((B * lib.seq_finish_scratch_ints(n, seq_cap),),
+    ctas = ctas or tail_ctas("seq_finish", B, n, seq_cap, dev)
+    stamps = torch.zeros((B, ctas, len(FINISH_STAMPS)), dtype=torch.int64,
+                         device=dev) if cycles else None
+    scratch = torch.empty(B * lib.seq_finish_scratch_ints(n, seq_cap, ctas),
                           dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -561,11 +659,12 @@ def finish_sequences(blocks, tri, seq_pos, seq_len, seq_off, nb_seq,
             out["ll"].data_ptr(), out["off"].data_ptr(), out["ml"].data_ptr(),
             out["lit_idx"].data_ptr(), out["nb_lit"].data_ptr(),
             out["overflow"].data_ptr(),
-            scratch.data_ptr() if scratch.numel() else 0, B, n, seq_cap,
+            scratch.data_ptr() if scratch.numel() else 0,
+            0 if stamps is None else stamps.data_ptr(), B, n, seq_cap, ctas,
             ctypes.c_void_p(stream))
     _kernels.check(err, "seq_finish_launch")
     _kernels.LAUNCHES["seq_finish"] += 1
-    return out
+    return out, stamps
 
 
 def _seqstore(blocks, tri, rows, valid_lens, seq_cap, mode):

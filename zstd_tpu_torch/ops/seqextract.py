@@ -116,7 +116,7 @@ def xla_extract_stats(blocks: torch.Tensor, cands: torch.Tensor,
 XLA_STATS = ("commits", "segments", "spec_steps", "rounds", "repair_steps",
              "spec_cycles", "repair_cycles", "emit_cycles", "ctas",
              "cta_cycles")
-CTAS = (2, 3, 4)            # the kernel's instantiations
+CTAS = _kernels.CTAS        # the kernel's instantiations
 _MAX_CLUSTERS: dict = {}
 
 
@@ -132,14 +132,7 @@ def xla_ctas(B: int, n: int, device) -> int:
         with torch.cuda.device(device):
             _MAX_CLUSTERS[key] = [lib.xla_walk_max_clusters(n, c)
                                   for c in CTAS]
-    best, cost = CTAS[0], None
-    for c, m in zip(CTAS, _MAX_CLUSTERS[key]):
-        if m <= 0:
-            continue
-        k = -(-B // m) / c
-        if cost is None or k <= cost:
-            best, cost = c, k
-    return best
+    return _kernels.fewest_waves(B, _MAX_CLUSTERS[key])
 
 
 def xla_extract_plain(blocks: torch.Tensor, cands: torch.Tensor,
