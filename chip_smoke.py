@@ -1074,9 +1074,6 @@ def lazy_phase(dev, corpus: bytes) -> list:
     for k in ("seq_merge", "seq_finish"):
         assert launches[k] == batches, (k, launches[k], batches)
     assert frame_blocks(frame) == len(corpus) // N_BLOCK
-    stage_mbps = pipeline.TorchCompressor(
-        level=5, device=dev).device_stage_mbps(corpus)
-    print(f"level 5 device_stage_mbps: {stage_mbps:.2f}", flush=True)
     profiled_encode(pipeline, dev, corpus, 5)
 
     # ---- A/B in this call: the tail's kernels against its plain torch ops,
@@ -1094,13 +1091,9 @@ def lazy_phase(dev, corpus: bytes) -> list:
         legs[leg].append(time.perf_counter() - t0)
         assert out == frame, f"level 5 with the {leg}: the frame differs"
     mbps = {leg: len(corpus) / min(t) / 1e6 for leg, t in legs.items()}
-    comp5 = pipeline.TorchCompressor(level=5, device=dev)
-    dsm = {"plain tail": plain_tail_call(comp5.device_stage_mbps, corpus),
-           "kernels": comp5.device_stage_mbps(corpus)}
     print("level 5 A/B (plain, kernels, kernels, plain): " + "; ".join(
         f"{leg} {mbps[leg]:.2f} MB/s (best of "
-        f"{', '.join(f'{t:.3f}' for t in legs[leg])} s), device_stage_mbps "
-        f"{dsm[leg]:.2f}" for leg in legs)
+        f"{', '.join(f'{t:.3f}' for t in legs[leg])} s)" for leg in legs)
         + f"; frames equal ({len(frame)} B)", flush=True)
     profiled_encode(pipeline, dev, corpus, 5,
                     encode=lambda: plain_tail_call(encode),
@@ -1357,9 +1350,6 @@ def xla_phase(dev, corpus: bytes) -> dict:
         assert launches[k] > 0, f"kernel {k} was not launched under xla"
     assert launches["extract"] == 0, "the extract kernel ran under xla"
     assert frame_blocks(frame) == len(corpus) // N_BLOCK
-    stage_mbps = pipeline.TorchCompressor(
-        level=1, device=dev, engine="xla").device_stage_mbps(corpus)
-    print(f"engine xla device_stage_mbps: {stage_mbps:.2f}", flush=True)
     profiled_encode(pipeline, dev, corpus, 1, label="engine xla, level 1",
                     encode=lambda: pipeline.compress(corpus, level=1,
                                                      device=dev,
@@ -2615,9 +2605,6 @@ def main() -> int:
     f_cpu = pipeline.compress(prefix, level=1, checksum=True, device="cpu")
     assert f_gpu == f_cpu, "cuda and cpu frames of the 1 MiB prefix differ"
     print(f"1 MiB prefix: cuda frame == cpu frame ({len(f_gpu)} B)", flush=True)
-
-    stage_mbps = comp.device_stage_mbps(corpus)
-    print(f"device_stage_mbps: {stage_mbps:.2f}", flush=True)
 
     # ---- 5. where the main path's time goes (one profiled run) ----------
     profiled_encode(pipeline, dev, corpus, 1)

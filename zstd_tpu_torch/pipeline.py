@@ -28,6 +28,12 @@ host plans batch k-2 and assembles batch k-3, and the stats and compact
 prefixes come back through non_blocking copies into pinned memory, each
 waited on by an event.
 
+A call of TorchCompressor.compress is one ZSTD_trace event (trace.py's
+GLOBAL_TRACER, which the CLI's --trace writes) and advances
+GLOBAL_PROGRESSION batch by batch. While trace.recording() is on it is also
+one span tree: per batch k the spans stage_in, stage_a, stats_wait, plan,
+stage_b, fetch_wait and finalize, then assemble.
+
 Every device step runs on the device of the caller's choosing: `cuda` (the
 default; the kernels run there) or `cpu` (the kernels' plain versions). It
 never falls back from one to the other.
@@ -36,7 +42,6 @@ never falls back from one to the other.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -59,6 +64,8 @@ from .ops.fse_enc import STATE_TABLE_PAD, SYM_PAD, fse_pack
 from .ops.huffman_enc import huf_pack_4x
 from .ops.seqextract import extract_batch, extract_batch_xla
 from .params import CParams, Strategy, get_cparams
+from .trace import GLOBAL_PROGRESSION, GLOBAL_TRACER
+from .trace import RECORDER as _rec
 from .xxhash64 import content_checksum
 
 # stats vector layout (zstd_tpu/pipeline.py's, so the two can be compared)
@@ -81,6 +88,9 @@ _PB_LITRAW = _PB_SINGLE + 1
 _PB_HUFUSED = _PB_LITRAW + 1
 _PB_BLEN = _PB_HUFUSED + 1
 PLAN_LEN = _PB_BLEN + 1
+
+# the compact prefix is fetched in whole steps of this many bytes
+FETCH_STEP = 128 * 1024
 
 RESIDENT_DTYPES = dict(llc=torch.int32, mlc=torch.int32, ofc=torch.int32,
                        ob=torch.int32, mlb=torch.int32, llx=torch.int32,
@@ -373,37 +383,80 @@ class TorchCompressor:
             lens[j] = e - s
         return blocks, lens
 
-    def _dispatch_a(self, arr, n, batch, block_size, cparams):
+    def _dispatch_a(self, arr, n, k, batch, block_size, cparams, prog=None):
+        """Batch k's blocks pinned and uploaded (span stage_in), then stage A
+        and the copy of its stats enqueued (stage_a). `prog`, where given,
+        is the frame progression to advance."""
+        t = _rec.on and _rec.begin("stage_in", k)
         blocks, lens = self._batch_blocks(arr, n, *batch, block_size)
         blocks_d, keep_b = self._h2d(blocks)
         lens_d, keep_l = self._h2d(lens)
+        end = min(batch[1] * block_size, n)
+        if prog is not None:
+            prog.ingested = end
+        if t:
+            _rec.end(t)
+        t = _rec.on and _rec.begin("stage_a", k)
         stats, resident = _analyze(
             blocks_d, lens_d, cparams.hash_log,
             min(max(cparams.min_match, 4), 8), max(block_size // 8, 8),
             self._engine_for(cparams))
         stats_h, ev = self._d2h(stats)
-        return lens, stats_h, ev, resident, (keep_b, keep_l)
+        if t:
+            _rec.end(t)
+        return lens, stats_h, ev, resident, end, (keep_b, keep_l)
 
-    def _dispatch_b(self, stage_a, block_size, cparams):
-        lens, stats_h, ev, resident, _ = stage_a
+    def _dispatch_b(self, stage_a, k, block_size, cparams, fetch, prog=None):
+        """Batch k's stats waited for (stats_wait) and planned (plan), then
+        the plan blob pinned and uploaded, stage B enqueued and
+        fetch(plans, compact) started (stage_b). Returns (plans, compact,
+        what fetch returned, the pinned blob kept alive for its copy)."""
+        lens, stats_h, ev, resident, end, _ = stage_a
+        t = _rec.on and _rec.begin("stats_wait", k)
         stats = self._wait(stats_h, ev)
+        if t:
+            _rec.end(t)
+        if prog is not None:
+            prog.consumed = end
+        t = _rec.on and _rec.begin("plan", k)
         plans, blob, cap, out_w_fse, seg_cap, out_w_huf = self._build_plans(
             stats, lens, cparams.strategy, block_size)
+        if t:
+            _rec.end(t)
+        t = _rec.on and _rec.begin("stage_b", k)
         blob_d, keep = self._h2d(blob)
         compact, _ = _pack(resident, blob_d, cap, out_w_fse, seg_cap,
                            out_w_huf)
-        return plans, compact, keep
+        fetched = fetch(plans, compact)
+        if t:
+            _rec.end(t)
+        return plans, compact, fetched, keep
 
     # -- entry points ----------------------------------------------------
     def compress(self, data: bytes) -> bytes:
+        """One zstd frame of `data`: one ZSTD_trace event, and one span tree
+        while recording is on (see the module's docstring). The frame
+        progression starts anew."""
+        prog = GLOBAL_PROGRESSION
+        prog.ingested = prog.consumed = prog.produced = prog.flushed = 0
+        with GLOBAL_TRACER.span("compress", self.level) as ev:
+            n = len(data)
+            cparams, block_size, batches = self._setup(n)
+            ev.window_log, ev.src_size = cparams.window_log, n
+            out = self._encode(data, cparams, block_size, batches)
+            prog.produced = prog.flushed = len(out)
+            ev.dst_size = len(out)
+        return out
+
+    def _encode(self, data, cparams, block_size, batches) -> bytes:
         n = len(data)
-        cparams, block_size, batches = self._setup(n)
         out = bytearray(write_frame_header(n, cparams.window_log, self.checksum))
         if n == 0:
             out += (1 | (BT_RAW << 1)).to_bytes(3, "little")
             if self.checksum:
                 out += content_checksum(b"").to_bytes(4, "little")
             return bytes(out)
+        GLOBAL_PROGRESSION.produced = len(out)
         arr = np.frombuffer(data, dtype=np.uint8)
 
         # software pipeline over batches: stage A of batch k is enqueued,
@@ -415,20 +468,27 @@ class TorchCompressor:
         payloads: list[tuple[bytes, int, int]] = []
 
         def plan(k):
-            plans, compact, keep = self._dispatch_b(stage_a.pop(k),
-                                                    block_size, cparams)
-            stage_b[k] = (plans, compact, self._start_fetch(plans, compact),
-                          keep)
+            stage_b[k] = self._dispatch_b(stage_a.pop(k), k, block_size,
+                                          cparams, self._start_fetch,
+                                          GLOBAL_PROGRESSION)
 
         def finish(k):
             plans, compact, fetch, _ = stage_b.pop(k)
+            t = _rec.on and _rec.begin("fetch_wait", k)
             metas, streams = self._fetch_regions(plans, compact, *fetch)
-            return self._finalize(plans, metas, streams, arr, batches[k][0],
-                                  block_size, cparams)
+            if t:
+                _rec.end(t)
+            t = _rec.on and _rec.begin("finalize", k)
+            results = self._finalize(plans, metas, streams, arr,
+                                     batches[k][0], block_size, cparams)
+            if t:
+                _rec.end(t)
+            GLOBAL_PROGRESSION.produced += sum(3 + len(r[0]) for r in results)
+            return results
 
         for k in range(len(batches)):
-            stage_a[k] = self._dispatch_a(arr, n, batches[k], block_size,
-                                          cparams)
+            stage_a[k] = self._dispatch_a(arr, n, k, batches[k], block_size,
+                                          cparams, GLOBAL_PROGRESSION)
             if k >= WINDOW - 1:
                 plan(k - WINDOW + 1)
             if k >= WINDOW:
@@ -438,6 +498,7 @@ class TorchCompressor:
         for k in range(max(len(batches) - WINDOW, 0), len(batches)):
             payloads += finish(k)
 
+        t = _rec.on and _rec.begin("assemble")
         for i, (payload, btype, blen) in enumerate(payloads):
             last = i == len(payloads) - 1
             if btype == BT_RLE:
@@ -448,7 +509,10 @@ class TorchCompressor:
             out += payload
         if self.checksum:
             out += content_checksum(data).to_bytes(4, "little")
-        return bytes(out)
+        out = bytes(out)
+        if t:
+            _rec.end(t)
+        return out
 
     def compress_resident(self, data: bytes) -> int:
         """Device-resident encode: both device stages over the whole input
@@ -465,13 +529,14 @@ class TorchCompressor:
         WINDOW = 3
 
         def plan(k):
-            plans, compact, keep = self._dispatch_b(stage_a.pop(k),
-                                                    block_size, cparams)
-            headers.append((plans, *self._d2h(compact[: len(plans) * 7 * 4]),
-                            compact, keep))
+            plans, compact, (host, ev), keep = self._dispatch_b(
+                stage_a.pop(k), k, block_size, cparams,
+                lambda plans, compact:
+                    self._d2h(compact[: len(plans) * 7 * 4]))
+            headers.append((plans, host, ev, compact, keep))
 
         for k in range(len(batches)):
-            stage_a[k] = self._dispatch_a(arr, n, batches[k], block_size,
+            stage_a[k] = self._dispatch_a(arr, n, k, batches[k], block_size,
                                           cparams)
             if k >= WINDOW - 1:
                 plan(k - WINDOW + 1)
@@ -483,56 +548,6 @@ class TorchCompressor:
             total += self._region_metas(plans, sizes)[1]
         self._sync()
         return total
-
-    def device_stage_mbps(self, data: bytes, reps: int = 3) -> float:
-        """Device-compute stage rate: the two device stages timed alone, each
-        ending in a synchronize, with inputs pre-staged on the device; host
-        planning and all transfers excluded."""
-        n = len(data)
-        if n == 0:
-            return 0.0
-        cparams, block_size, batches = self._setup(n)
-        arr = np.frombuffer(data, dtype=np.uint8)
-        mls = min(max(cparams.min_match, 4), 8)
-        seq_cap = max(block_size // 8, 8)
-        engine = self._engine_for(cparams)
-        dev_in = []
-        for batch in batches:
-            blocks, lens = self._batch_blocks(arr, n, *batch, block_size)
-            dev_in.append((torch.from_numpy(blocks).to(self.device),
-                           torch.from_numpy(lens).to(self.device), lens))
-
-        def run_a():
-            outs = [_analyze(b, l, cparams.hash_log, mls, seq_cap, engine)
-                    for b, l, _ in dev_in]
-            self._sync()
-            return outs
-
-        def best_of(fn):
-            best = float("inf")
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                fn()
-                best = min(best, time.perf_counter() - t0)
-            return best
-
-        outs = run_a()                       # warm
-        t_a = best_of(run_a)
-        pack_args = []
-        for (_, _, lens), (stats, resident) in zip(dev_in, outs):
-            _, blob, *shape = self._build_plans(
-                stats.cpu().numpy(), lens, cparams.strategy, block_size)
-            pack_args.append((resident, torch.from_numpy(blob).to(self.device),
-                              *shape))
-
-        def run_b():
-            for args in pack_args:
-                _pack(*args)
-            self._sync()
-
-        run_b()                              # warm
-        t_b = best_of(run_b)
-        return n / (t_a + t_b) / 1e6
 
     # -- host halves (copies of zstd_tpu/pipeline.py's) -------
     def _build_plans(self, stats, lens, strategy, block_size):
@@ -659,7 +674,7 @@ class TorchCompressor:
         estimate of the streams. Returns (host, event, prefix length)."""
         hdr = len(plans) * 7 * 4
         est_total = sum(p["est"] for p in plans)
-        step = 128 * 1024
+        step = FETCH_STEP
         nb = min(max(-(-(hdr + est_total) // step) * step, step),
                  int(compact.shape[0]))
         return (*self._d2h(compact[:nb]), nb)
