@@ -1766,8 +1766,9 @@ def host_c_phase(dev, corpus: bytes, frame: bytes, streams: dict) -> None:
     branches (tests/hostplain.py), in this one call. The device decode's
     host parse of the main path's 16 MiB level-1 frame, C against plain
     (ms, every field equal) and the decode's wall with each; `_build_plans`
-    of the 16 MiB corpus's level-1 stats (ms, equal plans) and the level-1
-    and level-5 encode walls with each (equal frames); decompress_stream of
+    of the 16 MiB corpus's level-1 stats (ms; one call of csrc/host/plan.c
+    a batch, which has no plain branch) and the level-1 and level-5 encode
+    walls with each (equal frames); decompress_stream of
     phase 10's level-1 (C only: the plain decoder takes minutes) and
     level-19 streams (MB/s; C == plain == input); compress_long_sharded at
     level 1 on 4 MiB of the long corpus with each, its host split (equal
@@ -1839,28 +1840,17 @@ def host_c_phase(dev, corpus: bytes, frame: bytes, streams: dict) -> None:
         return [comp._build_plans(st, ln, cp.strategy, N_BLOCK)
                 for st, ln in batches]
 
-    p_c, plans_c = best(plans)
-    with plain_branches():
-        p_p, plans_p = best(plans)
-    assert pickle.dumps(plans_c) == pickle.dumps(plans_p), \
-        "_build_plans: C != plain"
-    # what of the C run is still Python: its parts, and the time in C
-    split = timed_calls(
-        [(pipeline, "build_sequences_header_from_hists", "sequences header"),
-         (pipeline, "_fse_bit_cost", "bit-cost estimate"),
-         (pipeline.TorchCompressor, "_plan_literals", "literals plan")]
-        + [(native, name, "C calls") for name in (
-            "fse_normalize", "fse_write_ncount", "fse_build_ctable",
-            "fse_compress_2state", "huf_build_write")])
+    # one call of csrc/host/plan.c a batch; what is left is Python
+    p_c, _ = best(plans)
+    split = timed_calls([(native, "plan_batch", "C calls")])
     with split:
         t0 = time.perf_counter()
         plans()
         p_split = time.perf_counter() - t0
     in_c = split.seconds.get("C calls", 0.0)
-    print(f"host C, _build_plans split (C branch, one run of "
-          f"{p_split * 1e3:.1f} ms): " + ", ".join(
-              f"{k} {v * 1e3:.1f} ms" for k, v in split.seconds.items())
-          + f"; in Python {(1 - in_c / p_split) * 100:.1f}%", flush=True)
+    print(f"host C, _build_plans split (one run of {p_split * 1e3:.1f} ms, "
+          f"{len(batches)} calls of plan_batch): in plan_batch {in_c * 1e3:.1f} ms, "
+          f"in Python {(1 - in_c / p_split) * 100:.1f}%", flush=True)
     walls = {}
     for level in (1, 5):
         enc = pipeline.TorchCompressor(level=level, device=dev)
@@ -1870,8 +1860,8 @@ def host_c_phase(dev, corpus: bytes, frame: bytes, streams: dict) -> None:
         assert f_c == f_p, f"level {level} encode: C frame != plain frame"
         walls[level] = (w_c, w_p)
     print(f"host C, _build_plans of the {mib} MiB corpus's level-1 stats "
-          f"({len(batches)} batches of 32 blocks): C {p_c * 1e3:.1f} ms, "
-          f"plain {p_p * 1e3:.1f} ms (equal plans); encode wall, best of 2: "
+          f"({len(batches)} batches of 32 blocks): {p_c * 1e3:.1f} ms, best "
+          f"of 2; encode wall, best of 2: "
           + ", ".join(f"level {lv} C {c * 1e3:.1f} ms "
                       f"({len(corpus) / c / 1e6:.2f} MB/s), plain "
                       f"{p * 1e3:.1f} ms ({len(corpus) / p / 1e6:.2f} MB/s)"

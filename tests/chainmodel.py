@@ -24,10 +24,21 @@ from zstd_tpu_torch.constants import (LL_BITS, LL_DEFAULT_DIST, LL_DEFAULT_LOG,
                                       OF_DEFAULT_DIST, OF_DEFAULT_LOG)
 from zstd_tpu_torch.format import fse
 from zstd_tpu_torch.ops.fse_enc import STATE_TABLE_PAD, SYM_PAD, T_LL, T_ML, T_OF
-from zstd_tpu_torch.pipeline import _pad_ct
 
 W_KERNEL = 64        # the window of csrc/fse_chain.cu
 FIELD_STREAMS = (T_OF, T_ML, T_LL)   # stream of field slots 0, 1, 2
+
+
+def _pad_ct(ct) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """A format/fse.py CTable as one block's slot of the plan rows: state
+    table, delta_nb and delta_fs zero-padded, and the table log."""
+    st = np.zeros(STATE_TABLE_PAD, dtype=np.int32)
+    st[: len(ct.state_table)] = ct.state_table
+    dn = np.zeros(SYM_PAD, dtype=np.int32)
+    dn[: len(ct.delta_nb_bits)] = ct.delta_nb_bits
+    df = np.zeros(SYM_PAD, dtype=np.int32)
+    df[: len(ct.delta_find_state)] = ct.delta_find_state
+    return st, dn, df, ct.table_log
 
 
 def p_closed_form(dn: int) -> int:

@@ -3,8 +3,8 @@ open, every function of zstd_tpu_torch that calls the port's host C for the
 entropy coders, the block decoder, the decode's sequence parse or XXH64
 runs its Python branch instead (its `*_plain` counterpart), in every module
 that holds a reference to it. The whole-frame C encoders of
-csrc/host/cblock.c and the C parsers are not swapped: they have no Python
-branch in the port.
+csrc/host/cblock.c, the device encode's batch planner (csrc/host/plan.c)
+and the C parsers are not swapped: they have no Python branch in the port.
 
 Shared by tests/test_torch_host_c.py and chip_smoke.py, which time and
 compare the two branches in one process. Imports neither JAX nor zstd_tpu.

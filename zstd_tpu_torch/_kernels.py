@@ -6,10 +6,11 @@ together) into a shared library with a plain C interface under _build/, and
 loaded with ctypes. All of csrc/host/*.c is one host library, built by one
 process of the host C compiler (`cc`), as native/Makefile links native/*.c
 into one library: cblock.c calls the parsers and entropy coders of the
-other files. A library is rebuilt when a source changes (the sources' hash
-is part of the file name). Nothing here runs at import time, so the
-package imports on machines without nvcc or a GPU. A missing compiler or a
-failed build raises: nothing falls back.
+other files, and plan.c (the device encode's batch planner) the FSE and
+Huffman pieces of huf.c and encode.c. A library is rebuilt when a source
+changes (the sources' hash is part of the file name). Nothing here runs at
+import time, so the package imports on machines without nvcc or a GPU. A
+missing compiler or a failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu",
            "ldm_lookback.cu", "seq_merge.cu", "seq_finish.cu")
 HOST_SOURCES = ("host/cblock.c", "host/decode.c", "host/encode.c",
                 "host/fast.c", "host/huf.c", "host/lazy.c", "host/lz4.c",
-                "host/opt.c", "host/row.c", "host/xxh64.c")
+                "host/opt.c", "host/plan.c", "host/row.c", "host/xxh64.c")
 HOST_LIB = "host"
 
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
@@ -137,6 +138,9 @@ _HOST_SIGNATURES = {
     "zt_huf_encode4": (_I64, [_P, _L, _P, _P, _P, _L]),
     "zt_encode_sequences": (_I64, [_L] + [_P] * 8
                             + [_I, _P, _P, _P] * 3 + [_P, _L]),
+    # the device encode's batch planner (plan.c)
+    "zt_plan_batch": (_I64, [_P, _L, _P, _L, _I] + [_P] * 6
+                      + [_P, _L, _P, _L, _P, _L]),
 }
 
 # launch counts, one per kernel: each wrapper adds one where it launches its

@@ -258,6 +258,13 @@ int64_t zt_fse_write_ncount(const int32_t* norm, int max_symbol,
     return fse_write_ncount(norm, max_symbol, table_log, out, cap);
 }
 
+/* FSE_optimalTableLog_internal (minus 2 for FSE tables, 1 for
+ * HUF_optimalTableLog), for plan.c's batch planner */
+int zt_fse_optimal_table_log(int max_table_log, int64_t src_size,
+                             int max_symbol, int minus) {
+    return fse_optimal_table_log(max_table_log, src_size, max_symbol, minus);
+}
+
 /* ---------- Huffman tree build (format/huffman.py exact mirror) ------ */
 
 /* counts: sorted descending (ties by ascending symbol). leaf_bits out.

@@ -3,7 +3,8 @@
 Copy of the methods of zstd_tpu/native.py's _Native that the port's host
 code calls, over the port's own copy of the C (built with the host C
 compiler at first use by _kernels.host()): the parsers and whole-frame
-encoders, the entropy planning and encoders, the block decoder and XXH64.
+encoders, the entropy planning and encoders, the block decoder and XXH64,
+and the device encode's batch planner.
 The parsers take the whole input `full` (uint8) and absolute positions, and
 return (ll, ob, mb, new_reps): int32 literal lengths, spec Offset_Values
 and match lengths - 3. There is no fallback: without a C compiler every
@@ -15,6 +16,7 @@ callers do.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 
@@ -462,6 +464,56 @@ def encode_sequences(ll, ob, mb, llc, ofc, mlc, ll_bits, ml_bits,
         args += [tlog, _ptr(st), _ptr(dnb), _ptr(dfs)]
     r = _kernels.host().zt_encode_sequences(*args, _ptr(out), cap)
     return None if r < 0 else out[:r].tobytes()
+
+
+# ---- the device encode's batch planner (plan.c) -----------------------------
+
+# a block's record from plan_batch, one int64 each: the literal kind (0 raw,
+# 1 RLE, 2 Huffman), single stream, the four stream sizes, c_size, est,
+# last_count, nb_seq, nb_lit, all_same, first_lit, the sequences header's
+# and the tree's offset and length in the arena, the Huffman table's log and
+# max symbol
+PLAN_FIELDS = ("kind", "single", "size0", "size1", "size2", "size3",
+               "c_size", "est", "last_count", "nb_seq", "nb_lit", "all_same",
+               "first_lit", "hdr_off", "hdr_len", "tree_off", "tree_len",
+               "huf_log", "huf_max_symbol")
+_ARENA_PER_BLOCK = 1024     # a sequences header and a tree fit in 648 B
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tables():
+    from .constants import (LL_BITS, LL_DEFAULT_DIST, ML_BITS,
+                            ML_DEFAULT_DIST, OF_DEFAULT_DIST)
+    from .format.sequences import K_INV_PROB_LOG256
+    return (*(np.ascontiguousarray(t, dtype=np.int32) for t in (
+        LL_BITS[:36], ML_BITS[:53], LL_DEFAULT_DIST, OF_DEFAULT_DIST,
+        ML_DEFAULT_DIST)), np.ascontiguousarray(K_INV_PROB_LOG256,
+                                                dtype=np.int64))
+
+
+def plan_batch(stats: np.ndarray, lens: np.ndarray, strategy: int,
+               plan_len: int):
+    """Every block's entropy plan from its stats vector in one call:
+    (plan rows int32[B, plan_len], records int64[B, len(PLAN_FIELDS)], the
+    arena of sequences headers and tree descriptions as bytes)."""
+    stats = np.ascontiguousarray(stats, dtype=np.int32)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    b = stats.shape[0]
+    if stats.ndim != 2 or lens.shape != (b,):
+        raise ValueError(f"plan_batch: stats {stats.shape} and lens "
+                         f"{lens.shape} are not [B, n] and [B]")
+    blob = np.empty((b, plan_len), dtype=np.int32)
+    rec = np.empty((b, len(PLAN_FIELDS)), dtype=np.int64)
+    arena = np.empty(b * _ARENA_PER_BLOCK, dtype=np.uint8)
+    r = _kernels.host().zt_plan_batch(
+        _ptr(stats), stats.shape[1], _ptr(lens), b, strategy,
+        *(_ptr(t) for t in _plan_tables()), _ptr(blob), plan_len, _ptr(rec),
+        rec.shape[1], _ptr(arena), arena.shape[0])
+    if r < 0:
+        raise RuntimeError(
+            "zt_plan_batch: " + ("layout or arena mismatch" if r == -1 else
+                                 f"block {-2 - r} cannot be planned"))
+    return blob, rec, arena[:r].tobytes()
 
 
 # ---- the block decoder (decode.c) -------------------------------------------

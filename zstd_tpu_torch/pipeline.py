@@ -7,7 +7,8 @@ Structure (as in zstd_tpu, built around the host link):
   device stage A (`_analyze`): match extraction -> code conversion -> all
          histograms. Only the i32[B, 1152] stats vector is fetched; the
          per-sequence arrays stay resident on the device.
-  host:  entropy planning from the histograms alone (`_build_plans`).
+  host:  entropy planning from the histograms alone (`_build_plans`: one
+         call of csrc/host/plan.c a batch).
   device stage B (`_pack`): FSE (the fse_chain kernel + bit packing) and
          Huffman packing, then compaction of the valid bytes behind an
          i32[B, 7] sizes header.
@@ -46,17 +47,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import native
 from .constants import (BLOCK_MAX_SIZE, BT_COMPRESSED, BT_RAW, BT_RLE,
-                        LBT_COMPRESSED, LBT_RAW, LBT_RLE, LL_BITS, MIN_MATCH,
-                        ML_BITS)
-from .errors import Corruption
+                        LBT_COMPRESSED, LBT_RAW, LBT_RLE, MIN_MATCH)
 from .format import huffman
 from .format.frame import write_frame_header
-from .format.literals import (HufRepeat, _min_gain,
-                              _min_literals_to_compress)
-from .format.sequences import (FseEntropyState, _fse_bit_cost,
-                               build_sequences_header_from_hists,
-                               write_nbseq_header)
+from .format.literals import _min_gain
 from .ops.bitpack import bytes_of_words
 from .ops.codes import histogram, seq_codes
 from .ops.fastmatch import extract_batch_lazy, extract_batch_v3
@@ -88,6 +84,8 @@ _PB_LITRAW = _PB_SINGLE + 1
 _PB_HUFUSED = _PB_LITRAW + 1
 _PB_BLEN = _PB_HUFUSED + 1
 PLAN_LEN = _PB_BLEN + 1
+# the literal kinds of the batch planner's records (native.PLAN_FIELDS)
+_LIT_RLE, _LIT_HUF = 1, 2
 
 # the compact prefix is fetched in whole steps of this many bytes
 FETCH_STEP = 128 * 1024
@@ -240,16 +238,6 @@ def _pack(r: dict, plan_blob: torch.Tensor, cap: int, out_w_fse: int,
     buf[:hdr_len] = sizes2.view(torch.uint8).reshape(-1)
     buf.scatter_(0, dest.reshape(-1), src.reshape(-1))   # capp: dropped bytes
     return buf[:capp], sizes2
-
-
-def _pad_ct(ct) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
-    st = np.zeros(STATE_TABLE_PAD, dtype=np.int32)
-    st[: len(ct.state_table)] = ct.state_table
-    dn = np.zeros(SYM_PAD, dtype=np.int32)
-    dn[: len(ct.delta_nb_bits)] = ct.delta_nb_bits
-    df = np.zeros(SYM_PAD, dtype=np.int32)
-    df[: len(ct.delta_find_state)] = ct.delta_find_state
-    return st, dn, df, ct.table_log
 
 
 def _seq_cap_bucket(max_seq: int) -> int:
@@ -551,89 +539,33 @@ class TorchCompressor:
 
     # -- host halves (copies of zstd_tpu/pipeline.py's) -------
     def _build_plans(self, stats, lens, strategy, block_size):
-        """Per-block entropy planning from the stats vectors alone. Returns
-        (plans, plan blob, cap, out_w_fse, seg_cap, out_w_huf)."""
-        bsz = stats.shape[0]
+        """Per-block entropy planning from the stats vectors alone: the
+        whole batch in one call of the host library (csrc/host/plan.c),
+        then each block's plan dict. Returns (plans, plan blob, cap,
+        out_w_fse, seg_cap, out_w_huf)."""
+        blob, rec, arena = native.plan_batch(stats, lens, strategy, PLAN_LEN)
         plans = []
-        max_seq = 1
-        blob = np.zeros((bsz, PLAN_LEN), dtype=np.int32)
-        sts = blob[:, _PB_ST:_PB_DN].reshape(bsz, 3, STATE_TABLE_PAD)
-        dns = blob[:, _PB_DN:_PB_DF].reshape(bsz, 3, SYM_PAD)
-        dfs = blob[:, _PB_DF:_PB_TL].reshape(bsz, 3, SYM_PAD)
-        tls = blob[:, _PB_TL:_PB_NBL]
-        nb_luts = blob[:, _PB_NBL:_PB_VAL]
-        val_luts = blob[:, _PB_VAL:_PB_SINGLE]
-        singles = blob[:, _PB_SINGLE]
-        lit_raw = blob[:, _PB_LITRAW]
-        huf_used = blob[:, _PB_HUFUSED]
-        blens_col = blob[:, _PB_BLEN]
-
-        for j in range(bsz):
-            row = stats[j]
-            lit_hist4 = row[:1024].reshape(4, 256).astype(np.int64)
-            ll_hist = row[_STATS_LL:_STATS_LL + 36].astype(np.int64)
-            ml_hist = row[_STATS_ML:_STATS_ML + 53].astype(np.int64)
-            of_hist = row[_STATS_OF:_STATS_OF + 32].astype(np.int64)
-            last_codes = tuple(int(x) for x in row[_STATS_TAIL:_STATS_TAIL + 3])
-            nb_seq = int(row[_STATS_TAIL + 3])
-            nb_lit = int(row[_STATS_TAIL + 4])
-            all_same = bool(row[_STATS_TAIL + 5])
-            first_lit = int(row[_STATS_TAIL + 6])
-            blen = int(lens[j])
-
-            est_fse = 0
-            if nb_seq:
-                seq_header, fse_state, last_count = \
-                    build_sequences_header_from_hists(
-                        ll_hist, of_hist, ml_hist, last_codes, nb_seq,
-                        FseEntropyState(), strategy)
-                for t, ct in enumerate((fse_state.ct_ll, fse_state.ct_of,
-                                        fse_state.ct_ml)):
-                    sts[j, t], dns[j, t], dfs[j, t], tls[j, t] = _pad_ct(ct)
-                # expected bitstream bytes (sizes the single prefix fetch):
-                # per-channel state bits (fractional-accuracy FSE cost) +
-                # the exact extra-bit totals from the histograms
-                bits = 0
-                for ct, hist, xb in (
-                        (fse_state.ct_ll, ll_hist, LL_BITS[:36]),
-                        (fse_state.ct_ml, ml_hist, ML_BITS[:53]),
-                        (fse_state.ct_of, of_hist,
-                         np.arange(32, dtype=np.int64))):
-                    mx_c = int(np.nonzero(hist)[0][-1])
-                    sc = _fse_bit_cost(ct, hist, mx_c)
-                    bits += (sc if sc is not None else nb_seq * ct.table_log)
-                    bits += int(hist @ xb[: len(hist)])
-                    bits += ct.table_log       # init state
-                est_fse = (bits >> 3) + 16
+        for j, (kind, single, *sizes, c_size, est, last_count, nb_seq,
+                nb_lit, all_same, first_lit, hdr_off, hdr_len, tree_off,
+                tree_len, huf_log, max_symbol) in enumerate(rec.tolist()):
+            if kind == _LIT_HUF:
+                ct = huffman.HufCTable(huf_log, max_symbol,
+                                       blob[j, _PB_NBL:_PB_VAL].copy(),
+                                       blob[j, _PB_VAL:_PB_SINGLE].copy())
+                lp = _LitPlan("huf", single=bool(single),
+                              tree_desc=arena[tree_off:tree_off + tree_len],
+                              stream_sizes=tuple(sizes[:1 if single else 4]),
+                              c_size=c_size, ct=ct, n_lit=nb_lit)
+            elif kind == _LIT_RLE:
+                lp = _LitPlan("rle", n_lit=nb_lit, first_byte=first_lit)
             else:
-                seq_header, last_count = write_nbseq_header(0), 0
-
-            lp = self._plan_literals(nb_lit, lit_hist4, first_lit, strategy)
-            if lp.kind == "huf":
-                nb_luts[j] = lp.ct.nb_bits
-                val_luts[j] = lp.ct.value
-                singles[j] = lp.single
-                huf_used[j] = 1
-            elif lp.kind == "raw":
-                lit_raw[j] = True
-            blens_col[j] = blen
-            # host-side estimate of this block's device pieces, used to size
-            # the single compact-prefix fetch (the device pre-gate stores
-            # est >= blen raw, so cap at blen)
-            if lp.kind == "huf":
-                est_lit = sum(lp.stream_sizes)
-            elif lp.kind == "raw":
-                est_lit = nb_lit
-            else:
-                est_lit = 0
-            plans.append(dict(blen=blen, nb_seq=nb_seq, nb_lit=nb_lit,
-                              seq_header=seq_header, last_count=last_count,
-                              lit_plan=lp, all_same=all_same,
-                              first_lit=first_lit,
-                              est=min(est_fse + est_lit, blen + 16)))
-            max_seq = max(max_seq, nb_seq)
-
-        cap = _seq_cap_bucket(max_seq)
+                lp = _LitPlan("raw", n_lit=nb_lit)
+            plans.append(dict(blen=int(lens[j]), nb_seq=nb_seq, nb_lit=nb_lit,
+                              seq_header=arena[hdr_off:hdr_off + hdr_len],
+                              last_count=last_count, lit_plan=lp,
+                              all_same=bool(all_same), first_lit=first_lit,
+                              est=est))
+        cap = _seq_cap_bucket(max([1] + [p["nb_seq"] for p in plans]))
         # typical-density buffer sizing (overflow -> host raw fallback):
         # ~24 bits/sequence, ~10 bits/literal
         out_w_fse = (cap * 24) // 32 + 16
@@ -757,50 +689,6 @@ class TorchCompressor:
                 continue
             results.append((payload, BT_COMPRESSED, blen))
         return results
-
-    def _plan_literals(self, n_lit: int, hist4: np.ndarray, first_lit: int,
-                       strategy: int) -> _LitPlan:
-        if n_lit == 0:
-            return _LitPlan("raw", n_lit=0)
-        if n_lit < _min_literals_to_compress(strategy, HufRepeat.NONE):
-            return _LitPlan("raw", n_lit=n_lit)
-        hist = hist4.sum(axis=0)
-        largest = int(hist.max())
-        if largest == n_lit:
-            return _LitPlan("rle", n_lit=n_lit, first_byte=first_lit)
-        if largest <= (n_lit >> 7) + 4:
-            return _LitPlan("raw", n_lit=n_lit)
-        max_symbol = int(np.nonzero(hist)[0][-1])
-        huff_log = huffman.huf_optimal_table_log(huffman.HUF_TABLELOG_DEFAULT,
-                                                 n_lit, max_symbol)
-        ct = huffman.build_huf_ctable(hist, max_symbol, huff_log)
-        try:
-            tree_desc = huffman.write_tree_description(ct)
-        except Corruption:       # > 128 symbols whose weights do not compress
-            return _LitPlan("raw", n_lit=n_lit)
-        if len(tree_desc) + 12 >= n_lit:
-            return _LitPlan("raw", n_lit=n_lit)
-
-        min_gain = _min_gain(n_lit, strategy)
-        nbb = ct.nb_bits.astype(np.int64)
-        single = n_lit < 256
-        if single:
-            bits = int(hist @ nbb)
-            size0 = (bits + 1 + 7) // 8
-            c_size = len(tree_desc) + size0
-            sizes = (size0,)
-        else:
-            if n_lit < 12:
-                return _LitPlan("raw", n_lit=n_lit)
-            bits_s = hist4 @ nbb
-            sizes = tuple(int((b + 1 + 7) // 8) for b in bits_s)
-            if any(x > 65535 for x in sizes[:3]):
-                return _LitPlan("raw", n_lit=n_lit)
-            c_size = len(tree_desc) + 6 + sum(sizes)
-        if c_size >= n_lit - min_gain or c_size >= n_lit - 1:
-            return _LitPlan("raw", n_lit=n_lit)
-        return _LitPlan("huf", single=single, tree_desc=tree_desc,
-                        stream_sizes=sizes, c_size=c_size, ct=ct, n_lit=n_lit)
 
 
 def compress(data: bytes, level: int = 1, checksum: bool = False,
