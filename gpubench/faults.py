@@ -1,14 +1,20 @@
-"""The control and the planted faults that the judge has to catch.
+"""The controls and the planted faults that the judge has to catch.
 
 Each is a wrapper for the timed call of a cell (harness.main's `wrap`),
-which takes the input and returns a frame. The benchmark's own runs use
-none of them; gpubench/tests drive them.
+which takes the call's input (a raw input to compress, a frame to
+decompress) and returns its answer (a frame, or the decoded bytes). The
+benchmark's own runs use none of them; gpubench/tests drive them. Each
+operation names its control (ops/<op>.py, `control`).
 
-control: the configuration's guarantee broken in the least visible way: a
-    valid frame of the input with one byte changed (same size, same ratio).
+control: the compress cells' control, the configuration's guarantee broken
+    in the least visible way: a valid frame of the input with one byte
+    changed (same size, same ratio).
 unchanged: the call returns its input as it came.
-half: half of the work left out: the frame of the input's first half.
-altered: one byte of the frame changed where it is produced.
+half: half of the work left out: the answer to the input's first half (a
+    decode refuses half a frame, so the call fails).
+altered: one byte of the answer changed where it is produced. It is the
+    decode cells' control: the decoded bytes with one byte changed, the
+    same size, which only a comparison with the raw input sees.
 """
 
 from __future__ import annotations

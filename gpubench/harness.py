@@ -3,18 +3,33 @@
 A cell of BENCHMARK.json joins a configuration (configs/<name>.json: the
 level, the engine, the checksum flag, the corpus, the host's threads) and a
 traffic mix (traffic/<name>.json: the operation, the call size, the pool of
-distinct inputs, the traced stretch). The per-layer metrics are read by the readers
-in metrics/<name>.py. Everything is found by its name, so a new
-configuration, mix or metric is a new file.
+distinct inputs, the traced stretch). The operation is ops/<op>.py, the
+corpus corpora/<corpus>.py, and the per-layer metrics are read by the
+readers in metrics/<name>.py. Everything is found by its name, so a new
+configuration, mix, operation, corpus or metric is a new file.
 
-A run makes its inputs from the seed, warms up on each of them, and then
-runs a closed loop, one caller with back-to-back calls, until the window is
-over (--trace 0), or times a stretch of whole calls by the host's clock and
-then profiles the same calls again (--trace 1). Then it judges the answers
-with the plain reference (refdecode.py): a frame has to decode to its
-input, and no call may fail. The last line of standard output is the
-result, in JSON; the numbers compared, each beside its limit, are also the
-last lines of standard error.
+A run makes its raw inputs from the seed (the pool), has the operation make
+its call inputs from them, warms up on each, and then runs a closed loop,
+one caller with back-to-back calls, until the window is over (--trace 0),
+or times a stretch of whole calls by the host's clock and then profiles the
+same calls again (--trace 1). Then the operation judges the answers with
+the plain reference (refdecode.py), and no call may fail. Rates and the
+readers' bytes count each call's raw pool input, whatever the operation.
+The last line of standard output is the result, in JSON; the numbers
+compared, each beside its limit, are also the last lines of standard error.
+
+An operation module gives:
+  Op(config, device): its inputs(pool), the call inputs made from the raw
+      pool before the warm-up; the timed call, op(input) -> bytes; and
+      check_path(), which raises CellError where the warm-up and the
+      window did not run the path that the cell states;
+  frame_of(input, answer): the zstd frame of a call, for the readers;
+  end_to_end(in_bytes, out_bytes, wall_s): its own end-to-end metrics,
+      {name: (value, unit)};
+  judge(kept, inputs, pool): {name: {"value", "limit"}} over the kept
+      answers, (pool index, start, end, answer, size) each.
+  control: the wrapper of faults.py that plants the cell's control.
+A corpus module gives make(size, seed) -> bytes.
 """
 
 from __future__ import annotations
@@ -31,15 +46,12 @@ import time
 
 import numpy as np
 
-import corpus
 import devtrace
-import refdecode
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 # top-level module names that no run may hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "zstd_tpu")
-CORPORA = {"silesia-like": corpus.big_corpus}
 # the share of a window's answers kept for the judge, past the first round
 KEEP_ONE_IN = 8
 READER_KEYS = {"LAYER": "layer", "UNIT": "unit", "MOVES": "moves",
@@ -72,14 +84,21 @@ def traffic_of(bench_dir: str, name: str) -> dict:
     return load_json(os.path.join(bench_dir, "traffic", name + ".json"))
 
 
-def reader_of(bench_dir: str, name: str):
-    """The module of metrics/<name>.py."""
-    path = os.path.join(bench_dir, "metrics", name + ".py")
+def module_of(bench_dir: str, sub: str, name: str):
+    """The module of <sub>/<name>.py, loaded by its path."""
+    path = os.path.join(bench_dir, sub, name + ".py")
+    if not os.path.isfile(path):
+        raise CellError(f"no file {sub}/{name}.py in {bench_dir}")
     spec = importlib.util.spec_from_file_location(
-        "gpubench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"gpubench_{sub}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader_of(bench_dir: str, name: str):
+    """The module of metrics/<name>.py."""
+    return module_of(bench_dir, "metrics", name)
 
 
 def metrics_of(spec: dict, cell: str, kind: str) -> list:
@@ -113,10 +132,11 @@ def draw(seed: int, *keys: int) -> int:
     return lo | (hi << 32)
 
 
-def pool_of(config: dict, traffic: dict, seed: int) -> list:
-    """The traffic's distinct call inputs: `corpora` corpora of
+def pool_of(config: dict, traffic: dict, seed: int,
+            bench_dir: str = BENCH_DIR) -> list:
+    """The traffic's distinct raw inputs: `corpora` corpora of
     `corpus_bytes` each, cut into calls of `call_bytes`."""
-    make = CORPORA[config["corpus"]]
+    make = module_of(bench_dir, "corpora", config["corpus"]).make
     size, step = traffic["corpus_bytes"], traffic["call_bytes"]
     if size % step:
         raise CellError("corpus_bytes is not a multiple of call_bytes")
@@ -133,25 +153,15 @@ def order_of(n: int, seed: int) -> list:
     return np.random.default_rng(draw(seed, 2)).permutation(n).tolist()
 
 
-# ---- the operation -------------------------------------------------------------
-
-def prepare(config: dict, traffic: dict, device):
-    """The timed call: TorchCompressor.compress as the configuration states
-    it. Compression is the one operation that a cell runs."""
-    if traffic["op"] != "compress":
-        raise CellError(f"unknown operation {traffic['op']!r}")
-    from zstd_tpu_torch.pipeline import TorchCompressor
-    return TorchCompressor(level=config["level"], engine=config["engine"],
-                           device=device, checksum=config["checksum"]).compress
-
+# ---- the window -------------------------------------------------------------
 
 def run_calls(call, args, order, stop, keep=lambda k: True) -> list:
-    """Back-to-back calls, one caller, taking the pool's inputs in `order`
-    round after round, until stop(number made, time after the last) is
-    true. Returns per call (pool index, start, end, output, its size): the
-    output is the exception of a call that raised, and None where keep(k)
-    is false for the k-th call (the answer is dropped at once, as a user
-    would consume it)."""
+    """Back-to-back calls, one caller, taking the call inputs (one for each
+    pool input) in `order` round after round, until stop(number made, time
+    after the last) is true. Returns per call (pool index, start, end,
+    output, its size): the output is the exception of a call that raised,
+    and None where keep(k) is false for the k-th call (the answer is
+    dropped at once, as a user would consume it)."""
     recs = []
     k = 0
     while True:
@@ -182,56 +192,23 @@ def sample_of(seed: int, first: int):
 
 # ---- judging ---------------------------------------------------------------------
 
-def verdicts(frames: list, inputs: list) -> list:
-    """Whether each frame decodes to its input, by the reference: all
-    decoded together, or one by one where the reference refuses one."""
-    try:
-        return [c == x for c, x in zip(refdecode.decode_each(frames),
-                                       inputs)]
-    except Exception:
-        out = []
-        for f, x in zip(frames, inputs):
-            try:
-                out.append(refdecode.decode(f) == x)
-            except Exception:          # a frame the reference refuses
-                out.append(False)
-        return out
-
-
-def judge(recs: list, pool: list) -> dict:
-    """The numbers compared, each with its limit, over the kept answers:
-    each distinct frame of a pool input is decoded by the reference, and a
-    call whose frame does not decode to its input is wrong. A call that
-    raised is failed."""
+def judge(mod, recs: list, inputs: list, pool: list) -> dict:
+    """The numbers compared, each with its limit: the operation's, over the
+    kept answers, and the calls that raised (failed)."""
     failed = sum(isinstance(r[3], Exception) for r in recs)
     kept = [r for r in recs if isinstance(r[3], bytes)]
     print(f"judge: {len(kept)} of {len(recs)} answers kept", flush=True)
-    distinct: dict[int, list] = {}         # pool index -> distinct frames
-    which = []
-    for idx, _, _, out, _ in kept:
-        known = distinct.setdefault(idx, [])
-        for j, frame in enumerate(known):
-            if frame == out:
-                break
-        else:
-            j = len(known)
-            known.append(out)
-        which.append((idx, j))
-    keys = [(i, j) for i, fs in distinct.items() for j in range(len(fs))]
-    ok = dict(zip(keys, verdicts([distinct[i][j] for i, j in keys],
-                                 [pool[i] for i, _ in keys])))
-    wrong = sum(not ok[k] for k in which)
-    return {"wrong_calls": {"value": wrong, "limit": 0},
+    return {**mod.judge(kept, inputs, pool),
             "failed_calls": {"value": failed, "limit": 0}}
 
 
 # ---- the end-to-end metrics --------------------------------------------------------
 
-def end_to_end(recs: list, pool: list, t_start: float,
+def end_to_end(mod, recs: list, pool: list, t_start: float,
                setup_s: float) -> dict:
     """The end-to-end metrics of the window, {name: {value, unit}}, from
-    every call of `recs`; the window ran from t_start to the last call's
-    end."""
+    every call of `recs`: the harness's and the operation's; the window ran
+    from t_start to the last call's end."""
     ok = [r for r in recs if not isinstance(r[3], Exception)]
     wall = recs[-1][2] - t_start
     lat = [(r[2] - r[1]) * 1e3 for r in recs]
@@ -239,9 +216,7 @@ def end_to_end(recs: list, pool: list, t_start: float,
     out_bytes = sum(r[4] for r in ok)
     m = {"call_p90_ms": (float(np.percentile(lat, 90)), "ms"),
          "setup_s": (setup_s, "s"),
-         "encode_mbps": (in_bytes / 1e6 / wall, "MB/s")}
-    if out_bytes:
-        m["ratio"] = (in_bytes / out_bytes, "x")
+         **mod.end_to_end(in_bytes, out_bytes, wall)}
     print(f"window: {len(recs)} calls in {wall:.6f} s; call latency median "
           f"{statistics.median(lat):.4f} ms, p90 over {len(lat)} calls",
           flush=True)
@@ -262,19 +237,19 @@ class TraceView:
     profiler; the device's seconds by span and its busy seconds, from the
     profiled run of the same calls."""
 
-    def __init__(self, kind, recs, pool, host_s, wall_s, session):
+    def __init__(self, kind, recs, pool, frames, host_s, wall_s, session):
         ok = [r for r in recs if not isinstance(r[3], Exception)]
         self.kind = kind
         self.calls = len(recs)
         self.in_bytes = sum(len(pool[r[0]]) for r in ok)
-        self.frames = [r[3] for r in ok]
+        self.frames = frames
         self.host_s = dict(host_s)
         self.wall_s = wall_s
         self.device_s = session.device_s_by_span()
         self.busy_s = session.busy_s
 
 
-def traced(kind, traffic, readers, call, pool, order):
+def traced(kind, traffic, readers, call, inputs, pool, frame_of, order):
     """`trace_calls` whole calls with the readers' spans, twice: timed by
     the host's clock alone, then the same calls under the profiler, whose
     own cost would slow the host's part. Returns (the profiled calls,
@@ -288,7 +263,7 @@ def traced(kind, traffic, readers, call, pool, order):
     with devtrace.Spans(targets, ranges=False) as spans:
         launches0 = dict(_kernels.LAUNCHES)
         t0 = time.perf_counter()
-        run_calls(call, pool, order, lambda k, t: k >= n)
+        run_calls(call, inputs, order, lambda k, t: k >= n)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         launches = {k: v - launches0[k] for k, v in _kernels.LAUNCHES.items()
@@ -298,14 +273,17 @@ def traced(kind, traffic, readers, call, pool, order):
     with devtrace.Spans(targets) as spans:
         def stretch():
             spans.seconds.clear()            # a rerun session counts once
-            box["recs"] = run_calls(call, pool, order, lambda k, t: k >= n)
+            box["recs"] = run_calls(call, inputs, order,
+                                    lambda k, t: k >= n)
         session, empty = devtrace.profile_calls(stretch)
     recs = box["recs"]
     print(f"traced stretch: {n} calls in {wall_s:.6f} s by the host's clock, "
           f"{session.wall_s:.6f} s under the profiler; host s by span "
           f"{json.dumps(host_s)}, under the profiler "
           f"{json.dumps(spans.seconds)}", flush=True)
-    view = TraceView(kind, recs, pool, host_s, wall_s, session)
+    frames = [frame_of(inputs[r[0]], r[3]) for r in recs
+              if not isinstance(r[3], Exception)]
+    view = TraceView(kind, recs, pool, frames, host_s, wall_s, session)
     metrics = {}
     for name, mod in readers.items():
         value = mod.read(view)
@@ -415,36 +393,38 @@ def main(argv=None, *, device=None, wrap=None, bench_dir: str = BENCH_DIR,
     else:
         kind = str(device)
 
-    call = prepare(config, traffic, device)
-    pool = pool_of(config, traffic, args.seed)
-    if wrap is not None:
-        call = wrap(call)
+    mod = module_of(bench_dir, "ops", traffic["op"])
+    op = mod.Op(config, device)
+    pool = pool_of(config, traffic, args.seed, bench_dir)
+    inputs = op.inputs(pool)
+    call = op if wrap is None else wrap(op)
     order = order_of(len(pool), args.seed)
     for idx in order:                           # warm-up: each input once
-        call(pool[idx])
+        call(inputs[idx])
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
 
     t_start = time.perf_counter()
     if args.trace:
-        recs, metrics, extra = traced(kind, traffic, readers, call, pool,
-                                      order)
+        recs, metrics, extra = traced(kind, traffic, readers, call, inputs,
+                                      pool, mod.frame_of, order)
     else:
         cpu0 = time.process_time()
-        recs = run_calls(call, pool, order,
+        recs = run_calls(call, inputs, order,
                          lambda k, t: t - t_start >= args.seconds,
                          sample_of(args.seed, len(order)))
         print(f"window: process CPU {time.process_time() - cpu0:.3f} s",
               flush=True)
-        metrics = end_to_end(recs, pool, t_start, t_start - t_top)
+        metrics = end_to_end(mod, recs, pool, t_start, t_start - t_top)
         wanted = {m["name"] for m in
                   metrics_of(spec, cell["name"], "end_to_end")}
         metrics = {k: v for k, v in metrics.items() if k in wanted}
         extra = {"device": {}}
+    op.check_path()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     print(f"memory_peak_bytes: {peak}", flush=True)
-    del call
+    del call, op
     if cuda:
         torch.cuda.empty_cache()
 
@@ -452,7 +432,7 @@ def main(argv=None, *, device=None, wrap=None, bench_dir: str = BENCH_DIR,
     if cuda:
         print(card_line(), flush=True)
     t_ref = time.perf_counter()
-    checks = judge(recs, pool)
+    checks = judge(mod, recs, inputs, pool)
     print(f"reference: {time.perf_counter() - t_ref:.3f} s", flush=True)
     held = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
     if held:

@@ -664,3 +664,18 @@ def decode_each(frames: list) -> list:
         _need(end == p + len(f), "bytes after the frame")
         out.append(content)
     return out
+
+
+def verdicts(frames: list, inputs: list) -> list:
+    """Whether each one-frame buffer of `frames` decodes to its input: all
+    decoded together, or one by one where the reference refuses one."""
+    try:
+        return [c == x for c, x in zip(decode_each(frames), inputs)]
+    except Exception:
+        out = []
+        for f, x in zip(frames, inputs):
+            try:
+                out.append(decode(f) == x)
+            except Exception:          # a frame the reference refuses
+                out.append(False)
+        return out

@@ -98,6 +98,16 @@ def stage_b_bytes(frames) -> int:
                                    for t, size, _, _ in blocks(f) if t == 2)
 
 
+def decode_bytes(frames, content_bytes: int) -> int:
+    """The decode: every block's payload read once at its size in the frame
+    (an RLE block's one byte), the sequences and literals handed from the
+    literal decode to the sequence executor once, and the decoded content
+    written once."""
+    return sum(1 if t == 1 else size for f in frames
+               for t, size, _, _ in blocks(f)) \
+        + handed_on(frames) + content_bytes
+
+
 def share_pct(nbytes: int, seconds: float, kind: str) -> float | None:
     """The least time to move nbytes at the card's peak, as a share of
     `seconds` in %; None where there is no time or no peak for the card."""

@@ -35,30 +35,36 @@ def card():
     return "cuda"
 
 
-# a tiny mix for the CPU: a call of 128 KiB, a pool of two
-TINY = {"tiny-compress": {"op": "compress", "call_bytes": 131072,
-                          "corpus_bytes": 262144, "corpora": 1,
-                          "trace_calls": 2}}
+# tiny mixes for the CPU, one for each operation: a call of 128 KiB, a
+# pool of two
+TINY = {f"tiny-{op}": {"op": op, "call_bytes": 131072,
+                       "corpus_bytes": 262144, "corpora": 1,
+                       "trace_calls": 2}
+        for op in ("compress", "decompress")}
 
 
 @pytest.fixture
 def tiny_bench(tmp_path):
-    """A copy of the benchmark's files in tmp_path with a tiny cell added
-    as a new traffic file (and its lines in BENCHMARK.json). Returns
+    """A copy of the benchmark's files in tmp_path with a tiny cell for each
+    operation added as a new traffic file (and its lines in BENCHMARK.json:
+    a tiny cell joins the metrics of the cells of its operation). Returns
     (bench_dir, root)."""
     root = tmp_path
     bench = root / "gpubench"
-    for sub in ("configs", "traffic", "metrics"):
+    for sub in ("configs", "traffic", "metrics", "ops", "corpora"):
         shutil.copytree(os.path.join(BENCH, sub), bench / sub)
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         spec = json.load(f)
+    op_of = {c["name"]: json.loads((bench / "traffic" /
+                                    f"{c['traffic']}.json").read_text())["op"]
+             for c in spec["workloads"]}
     for name, mix in TINY.items():
         (bench / "traffic" / f"{name}.json").write_text(json.dumps(mix))
         cell = f"silesia-l1.{name}"
         spec["workloads"].append({"name": cell, "config": "silesia-l1",
                                   "traffic": name, "chips": 1, "why": "test"})
         for m in spec["end_to_end"] + spec["per_layer"]:
-            if "workloads" in m:
+            if any(op_of.get(c) == mix["op"] for c in m.get("workloads", ())):
                 m["workloads"].append(cell)
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     return str(bench), str(root)

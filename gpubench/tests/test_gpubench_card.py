@@ -1,6 +1,6 @@
-"""On a card: the control at each cell's own size, on three seeds. Its
-wrong_calls is the upper reading of the limit (PERF.md); the benchmark's
-own runs never run it.
+"""On a card: each cell's control (its operation's `control`) at the cell's
+own size, on three seeds. Its wrong_calls is the upper reading of the limit
+(PERF.md); the benchmark's own runs never run it.
 
     python -m pytest gpubench/tests/test_gpubench_card.py -q -m card -s
 """
@@ -11,9 +11,8 @@ import json
 import os
 
 import pytest
-from conftest import ROOT
+from conftest import BENCH, ROOT
 
-import faults
 import harness
 
 SPEC = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -23,11 +22,12 @@ SEEDS = [2**31 + 101, 2**31 + 102, 2**31 + 103]
 @pytest.mark.card
 @pytest.mark.parametrize("cell", [c["name"] for c in SPEC["workloads"]])
 def test_control_fails_at_the_cells_size(card, capsys, cell):
+    traffic = harness.traffic_of(BENCH, harness.cell_of(SPEC, cell)["traffic"])
+    control = harness.module_of(BENCH, "ops", traffic["op"]).control
     readings = []
     for seed in SEEDS:
         rc = harness.main(["--workload", cell, "--seed", str(seed),
-                           "--seconds", "5"],
-                          wrap=faults.control)
+                           "--seconds", "5"], wrap=control)
         out, _ = capsys.readouterr()
         assert rc == 0
         res = json.loads(out.strip().splitlines()[-1])

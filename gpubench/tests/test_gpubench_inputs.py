@@ -1,11 +1,16 @@
-"""The inputs: the frozen corpus, seeded pools and call orders."""
+"""The inputs: the frozen corpus, seeded pools and call orders, and the
+frames the compress cells make, pinned to what the harness made before
+operations and corpora were files of their own (commit 19da34c)."""
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import sys
 
 import pytest
-from conftest import ROOT
+from conftest import BENCH, ROOT
 
 import corpus
 import harness
@@ -81,3 +86,40 @@ def test_large_and_negative_seeds():
     for seed in (2**31 + 1, 2**33 + 7, -5):
         assert harness.draw(seed, 1) == harness.draw(seed, 1)
         assert harness.draw(seed, 1) != harness.draw(seed, 2)
+
+
+SEED = 2**31 + 2021
+# sha256 of the pool's inputs, one after another, at each cell's own sizes
+POOLS = {"compress-16mib":
+         "5a085e9aa52e8ca4c1540c3d33f7cb0353b483814c7e336e63fd4e6d2e27cb44",
+         "compress-1mib":
+         "17eee6dda8768d84af6f1a2770064a201d9626c300ff5d214c1ac3f07cacbfd7"}
+# sha256 of the frames of a pool of two 128 KiB calls, by configuration
+FRAMES = {"silesia-l1": [
+    "453c004b4eab7e1084c8826fc71e8363a98bdbe5f862a582e6fb12683dc60521",
+    "55ac7170527c54c2a731e898121136ec3ad4ea85988a7703708a67b2ae3916d5"],
+    "silesia-l5": [
+    "0dba78364ff7372e7a35b3d8761c78ea95b494c63b7334eb00c728cce9fd1d96",
+    "cf03408a767d51814addc69475046aa25ab01b07c19a94407251969ac622128c"]}
+SPEC = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+
+
+@pytest.mark.parametrize("cell", [c for c in SPEC["workloads"]
+                                  if c["traffic"] in POOLS],
+                         ids=lambda c: c["name"])
+def test_compress_cells_pools_are_pinned(cell):
+    config = harness.config_of(BENCH, cell["config"])
+    traffic = harness.traffic_of(BENCH, cell["traffic"])
+    h = hashlib.sha256()
+    for x in harness.pool_of(config, traffic, SEED):
+        h.update(x)
+    assert h.hexdigest() == POOLS[cell["traffic"]]
+
+
+@pytest.mark.parametrize("name", sorted(FRAMES))
+def test_compress_frames_are_pinned(name):
+    config = harness.config_of(BENCH, name)
+    tiny = {"call_bytes": 131072, "corpus_bytes": 262144, "corpora": 1}
+    op = harness.module_of(BENCH, "ops", "compress").Op(config, "cpu")
+    frames = [op(x) for x in op.inputs(harness.pool_of(config, tiny, SEED))]
+    assert [hashlib.sha256(f).hexdigest() for f in frames] == FRAMES[name]

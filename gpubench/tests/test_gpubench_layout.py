@@ -1,5 +1,6 @@
-"""Every cell's configuration, traffic mix and per-layer readers are files
-found by their names, and a new one is picked up without an edit."""
+"""Every cell's configuration, traffic mix, operation, corpus and per-layer
+readers are files found by their names, and a new one is picked up without
+an edit."""
 
 from __future__ import annotations
 
@@ -20,8 +21,10 @@ def test_cell_files_found_by_name(cell):
     config = harness.config_of(BENCH, c["config"])
     traffic = harness.traffic_of(BENCH, c["traffic"])
     assert config["name"] == c["config"]
-    assert traffic["op"] == "compress"
-    assert config["corpus"] in harness.CORPORA
+    op = harness.module_of(BENCH, "ops", traffic["op"])
+    for attr in ("Op", "frame_of", "end_to_end", "judge"):
+        assert callable(getattr(op, attr)), attr
+    assert callable(harness.module_of(BENCH, "corpora", config["corpus"]).make)
     readers = harness.readers_of(SPEC, BENCH, cell)
     assert readers, "every cell reports a per-layer metric"
     for name, mod in readers.items():
@@ -50,14 +53,20 @@ def test_moves_an_end_to_end_metric_of_its_cells(metric):
                harness.metrics_of(SPEC, cell, "end_to_end")}
         assert m["moves"] in e2e, (metric, cell)
 
+
 def test_every_file_is_read():
-    """Each config, mix and reader is used by a cell of BENCHMARK.json."""
+    """Each config, mix, operation, corpus and reader is used by a cell of
+    BENCHMARK.json."""
     cells = SPEC["workloads"]
+    configs = [harness.config_of(BENCH, c["config"]) for c in cells]
+    mixes = [harness.traffic_of(BENCH, c["traffic"]) for c in cells]
     used = {("configs", c["config"]) for c in cells} | \
         {("traffic", c["traffic"]) for c in cells} | \
-        {("metrics", m["name"]) for m in SPEC["per_layer"]}
+        {("metrics", m["name"]) for m in SPEC["per_layer"]} | \
+        {("ops", t["op"]) for t in mixes} | \
+        {("corpora", c["corpus"]) for c in configs}
     found = {(sub, f.rsplit(".", 1)[0])
-             for sub in ("configs", "traffic", "metrics")
+             for sub in ("configs", "traffic", "metrics", "ops", "corpora")
              for f in os.listdir(os.path.join(BENCH, sub))
              if f.endswith((".json", ".py"))}
     assert found == used
@@ -109,3 +118,88 @@ def test_reader_that_disagrees_is_refused(tiny_bench):
     spec["per_layer"][0]["unit"] = "s"
     with pytest.raises(harness.CellError):
         harness.readers_of(spec, bench, spec["per_layer"][0]["workloads"][0])
+
+
+@pytest.mark.parametrize("sub,key", [("ops", "op"), ("corpora", "corpus")])
+def test_unknown_op_or_corpus_names_its_file(capsys, tiny_bench, sub, key):
+    """A mix whose operation, or a configuration whose corpus, has no file
+    is refused with the file's name."""
+    bench, root = tiny_bench
+    where = "traffic" if key == "op" else "configs"
+    name = "tiny-compress" if key == "op" else "silesia-l1"
+    path = os.path.join(bench, where, name + ".json")
+    with open(path) as f:
+        data = json.load(f)
+    data[key] = "no-such"
+    with open(path, "w") as f:
+        json.dump(data, f)
+    with pytest.raises(harness.CellError, match=f"{sub}/no-such.py"):
+        harness.main(["--workload", "silesia-l1.tiny-compress", "--seed", "3",
+                      "--seconds", "0.5"], device="cpu", bench_dir=bench,
+                     root=root)
+
+
+TOY_OP = '''"""A toy operation: the answer is the input reversed."""
+
+
+class Op:
+    def __init__(self, config, device):
+        pass
+
+    def inputs(self, pool):
+        return pool
+
+    def __call__(self, data):
+        return data[::-1]
+
+    def check_path(self):
+        pass
+
+
+def frame_of(data, answer):
+    return answer
+
+
+def end_to_end(in_bytes, out_bytes, wall_s):
+    return {"toy_mbps": (in_bytes / 1e6 / wall_s, "MB/s")}
+
+
+def judge(kept, inputs, pool):
+    return {"wrong_calls": {"value": sum(out != pool[i][::-1]
+                                         for i, _, _, out, _ in kept),
+                            "limit": 0}}
+'''
+
+
+def test_a_new_operation_is_a_file(capsys, tiny_bench):
+    """An operation and a corpus, each a new file, run in a new cell
+    with no edit of the harness."""
+    bench, root = tiny_bench
+    with open(os.path.join(bench, "ops", "reverse.py"), "w") as f:
+        f.write(TOY_OP)
+    with open(os.path.join(bench, "corpora", "zeros.py"), "w") as f:
+        f.write("def make(size, seed):\n    return bytes(size)\n")
+    with open(os.path.join(bench, "traffic", "tiny-reverse.json"), "w") as f:
+        json.dump({"op": "reverse", "call_bytes": 4096,
+                   "corpus_bytes": 8192, "corpora": 1, "trace_calls": 2}, f)
+    with open(os.path.join(bench, "configs", "silesia-l1.json")) as f:
+        cfg = json.load(f)
+    cfg.update(name="zeros", corpus="zeros")
+    with open(os.path.join(bench, "configs", "zeros.json"), "w") as f:
+        json.dump(cfg, f)
+    spec = json.load(open(os.path.join(root, "BENCHMARK.json")))
+    spec["workloads"].append({"name": "zeros.tiny-reverse",
+                              "config": "zeros", "traffic": "tiny-reverse",
+                              "chips": 1, "why": "test"})
+    spec["end_to_end"].append({"name": "toy_mbps", "unit": "MB/s",
+                               "better": "higher", "bound": 0.25,
+                               "source": "host_clock",
+                               "workloads": ["zeros.tiny-reverse"]})
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(spec, f)
+    rc = harness.main(["--workload", "zeros.tiny-reverse", "--seed", "3",
+                       "--seconds", "0.2"], device="cpu", bench_dir=bench,
+                      root=root)
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and res["correct"] is True
+    assert set(res["metrics"]) == {"call_p90_ms", "setup_s", "toy_mbps"}

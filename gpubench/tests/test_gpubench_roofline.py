@@ -44,6 +44,11 @@ def test_byte_counts_of_a_handmade_frame():
     assert roofline.handed_on([f]) == handed
     assert roofline.stage_a_bytes([f], 1097) == 1097 + handed
     assert roofline.stage_b_bytes([f]) == handed + 36 + 3
+    # payloads at their sizes in the frame: 5 raw, 1 for the RLE block's
+    # 1,000, 36 and 3 compressed; then the content, here 2,000 bytes
+    assert roofline.decode_bytes([f], 2000) == 5 + 1 + 36 + 3 + handed + 2000
+    assert roofline.decode_bytes([f, f], 4000) == \
+        2 * (5 + 1 + 36 + 3 + handed) + 4000
 
 
 @pytest.mark.parametrize("level", [1, 5])

@@ -111,8 +111,9 @@ def test_without_the_program_no_result(tmp_path):
 
 def test_imports_hold_no_jax():
     """What run.py imports, the program's modules the harness drives, and
-    every metric reader: no top-level module named jax, jaxlib, flax or
-    zstd_tpu (compared whole: zstd_tpu_torch is the program)."""
+    every operation, corpus and metric reader: no top-level module named
+    jax, jaxlib, flax or zstd_tpu (compared whole: zstd_tpu_torch is the
+    program)."""
     code = f"""
 import os, sys
 sys.argv = ["run.py"]
@@ -121,9 +122,11 @@ import runpy
 runpy.run_path({os.path.join(BENCH, "run.py")!r}, run_name="not_main")
 import harness, faults
 import zstd_tpu_torch.pipeline, zstd_tpu_torch._kernels
-for name in os.listdir(os.path.join({BENCH!r}, "metrics")):
-    if name.endswith(".py"):
-        harness.reader_of({BENCH!r}, name[:-3])
+import zstd_tpu_torch.device_decoder
+for sub in ("metrics", "ops", "corpora"):
+    for name in os.listdir(os.path.join({BENCH!r}, sub)):
+        if name.endswith(".py"):
+            harness.module_of({BENCH!r}, sub, name[:-3])
 print(sorted({{m.split(".")[0] for m in sys.modules}}))
 """
     p = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -132,3 +135,82 @@ print(sorted({{m.split(".")[0] for m in sys.modules}}))
     names = set(eval(p.stdout.strip().splitlines()[-1]))
     assert "zstd_tpu_torch" in names and "torch" in names
     assert not names & set(harness.FORBIDDEN)
+
+
+# ---- the decode -------------------------------------------------------------
+
+DECODE = "silesia-l1.tiny-decompress"
+
+
+def test_decode_result_line(capsys, tiny_bench):
+    bench, root = tiny_bench
+    res, err = run(capsys, bench, root, DECODE, seed=2**31 + 9)
+    assert list(res) == KEYS
+    assert res["correct"] is True and res["failed"] == 0
+    assert res["attempted"] >= 1
+    assert set(res["metrics"]) == {"call_p90_ms", "setup_s"}
+    assert list(res["checks"]) == ["wrong_calls", "encoder_frames_refused",
+                                   "failed_calls"]
+    assert all(c["value"] == 0 for c in res["checks"].values())
+    tail = err.strip().splitlines()[-3:]
+    assert tail == [f"{k} {c['value']} limit {c['limit']}"
+                    for k, c in res["checks"].items()]
+
+
+@pytest.mark.parametrize("fault", ["altered", "unchanged"])
+def test_decode_judge_catches(capsys, tiny_bench, fault):
+    """altered, the decode's control: the decoded answer with one byte
+    changed; unchanged: the frame returned as it came."""
+    bench, root = tiny_bench
+    res, err = run(capsys, bench, root, DECODE, wrap=faults.FAULTS[fault])
+    assert res["correct"] is False
+    assert res["checks"]["wrong_calls"]["value"] >= min(res["attempted"], 2)
+    assert res["checks"]["encoder_frames_refused"]["value"] == 0
+
+
+def test_decode_call_that_raises_is_failed(capsys, tiny_bench):
+    """half: the frame's first half, which the decoder refuses."""
+    bench, root = tiny_bench
+    calls = []
+
+    def wrap(call):
+        half = faults.half(call)
+
+        def flaky(frame):
+            calls.append(1)
+            return call(frame) if len(calls) <= 2 else half(frame)
+        return flaky
+    res, _ = run(capsys, bench, root, DECODE, wrap=wrap)
+    assert res["correct"] is False
+    assert res["failed"] == res["checks"]["failed_calls"]["value"] >= 1
+
+
+def test_decode_frame_the_reference_refuses(capsys, tiny_bench,
+                                            monkeypatch):
+    """A frame that the decoder decodes and the reference refuses fails the
+    run, and the line names the encoder."""
+    import refdecode
+
+    def refuse(*args, **kwargs):
+        raise refdecode.FormatError("planted")
+    monkeypatch.setattr(refdecode, "decode_each", refuse)
+    monkeypatch.setattr(refdecode, "decode", refuse)
+    bench, root = tiny_bench
+    res, err = run(capsys, bench, root, DECODE)
+    assert res["correct"] is False
+    assert res["checks"]["wrong_calls"]["value"] == 0
+    assert res["checks"]["encoder_frames_refused"]["value"] == 2
+    assert "encoder_frames_refused 2 limit 0" in err
+    assert "the fault is the encoder's" in err
+
+
+def test_decode_host_fallback_raises(capsys, tiny_bench, monkeypatch):
+    """Frames over the device's literal-stream cap go to the host decoder:
+    the run raises instead of timing the host decode."""
+    from zstd_tpu_torch import device_decoder
+    monkeypatch.setattr(device_decoder, "_STREAM_CAP", 16)
+    bench, root = tiny_bench
+    with pytest.raises(harness.CellError, match="host decoder"):
+        harness.main(["--workload", DECODE, "--seed", "7", "--seconds",
+                      "0.5"], device="cpu", bench_dir=bench, root=root)
+    assert '"correct"' not in capsys.readouterr().out
