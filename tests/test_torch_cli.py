@@ -13,6 +13,9 @@ Where the two differ by design, the test shows both:
 - ZSTD_TPU_ENGINE=host moves zstd_tpu's encode onto its device pipeline
   (zstd_tpu/cli.py:146); the port's CLI reads no environment variable to
   choose its path;
+- --long under --engine tpu at levels 1-2 is dropped by zstd_tpu for its
+  device encode (zstd_tpu/cli.py:235); the port's --engine gpu/tpu runs
+  --long through the sharded long-distance matcher at every level;
 - lz4 input with bytes after its last frame decodes to partial output and
   exits 0 in zstd_tpu (:274-280); the port reports the trailing bytes and
   exits 1, as both do after zstd frames;
@@ -34,6 +37,7 @@ import pytest
 
 from tests.bigcorpus import big_corpus
 from tests.conftest import gen_text
+from tests.longcorpus import long_corpus
 from tests.refnative import reference_native
 from zstd_tpu import cli as jcli
 from zstd_tpu import dictionary as jdict
@@ -419,6 +423,34 @@ def test_device_engine_without_a_card_raises(tmp_path, monkeypatch):
     assert res[0] == 1 and "no CUDA device" in res[2]
 
 
+LONG = long_corpus(256 * 1024, seg=64 * 1024)
+
+
+@pytest.mark.parametrize("level", (3, 1))
+def test_device_engine_long_takes_the_long_matcher(tmp_path, monkeypatch,
+                                                   level):
+    """--engine gpu --long=N writes compress_long_sharded's frame (the
+    sharded discovery on the device, its plain versions on the CPU, and the
+    host's gap parse) at level 3, and at level 1, where the device encode
+    would otherwise take the call."""
+    from zstd_tpu_torch.parallel import ldm_sharded as tl
+    calls = []
+    orig = tl.compress_long_sharded
+    monkeypatch.setattr(tl, "compress_long_sharded",
+                        lambda *a, **k: calls.append(k) or orig(*a, **k))
+    got = _run(monkeypatch, str(tmp_path / "t"),
+               functools.partial(tcli.main, device="cpu"),
+               ["--engine", "gpu", "--long=20", f"-{level}", "-c", "l.bin"],
+               {"l.bin": LONG})
+    assert got[0] == 0 and got[2] == ""
+    assert calls == [dict(level=level, checksum=True, long_log=20,
+                          device="cpu")]
+    assert got[1] == orig(LONG, level=level, checksum=True, long_log=20,
+                          device="cpu")
+    assert jcodec.decompress(got[1]) == LONG
+    assert len(got[1]) < len(LONG) // 3
+
+
 # ---- where the port differs by design --------------------------------------------
 
 def test_engine_env_pins_reference_fault(tmp_path, monkeypatch):
@@ -434,6 +466,28 @@ def test_engine_env_pins_reference_fault(tmp_path, monkeypatch):
     assert want[0] == got[0] == 0
     assert got[1] == host
     assert want[1] != host and jcodec.decompress(want[1]) == SMALL
+
+
+def test_engine_tpu_long_pins_reference_fault(tmp_path, monkeypatch,
+                                             jax_reference):
+    """zstd_tpu's CLI under --engine tpu --long=20 -1 drops the long
+    matcher: its frame is its device encode's without --long. The port's
+    is the long matcher's."""
+    from zstd_tpu_torch.parallel import ldm_sharded as tl
+    files = {"s.bin": SMALL}
+    want = _run(monkeypatch, str(tmp_path / "j"), jcli.main,
+                ["--engine", "tpu", "--long=20", "-1", "-c", "s.bin"], files)
+    plain = _run(monkeypatch, str(tmp_path / "j2"), jcli.main,
+                 ["--engine", "tpu", "-1", "-c", "s.bin"], files)
+    got = _run(monkeypatch, str(tmp_path / "t"),
+               functools.partial(tcli.main, device="cpu"),
+               ["--engine", "tpu", "--long=20", "-1", "-c", "s.bin"], files)
+    assert want[0] == plain[0] == got[0] == 0
+    assert want[1] == plain[1]
+    assert got[1] == tl.compress_long_sharded(SMALL, level=1, checksum=True,
+                                              long_log=20, device="cpu")
+    assert got[1] != want[1]
+    assert jcodec.decompress(got[1]) == jcodec.decompress(want[1]) == SMALL
 
 
 def test_lz4_trailing_bytes_pin_reference_fault(tmp_path, monkeypatch):

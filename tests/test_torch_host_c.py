@@ -15,7 +15,10 @@ the reference's result or error.
 
 import concurrent.futures as fut
 import json
+import os
 import pathlib
+import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -587,3 +590,49 @@ def test_reference_native_rebuilds_after_a_lost_build_race(monkeypatch):
     lib = reference_native()
     assert lib is not None and get_native() is lib
     assert lib.xxh64(b"abc", 0) == txxh._xxh64_py(b"abc", 0)
+
+
+def _plant_partial(tmp_path) -> tuple[str, str]:
+    """A copy of native/ built in tmp_path, its library then linked again
+    without xxh64.o, newer than every object: what a make that links while
+    another is still writing xxh64.o leaves. Returns (library, native
+    directory)."""
+    from zstd_tpu import native as jnative
+    src = os.path.join(jnative._REPO_ROOT, "native")
+    ndir = tmp_path / "native"
+    ndir.mkdir(parents=True)
+    for name in os.listdir(src):
+        if name.endswith(".c") or name == "Makefile":
+            shutil.copy(os.path.join(src, name), ndir / name)
+    subprocess.run(["make", "-j4", "-C", str(ndir)], check=True,
+                   capture_output=True, timeout=600)
+    so = tmp_path / "zstd_tpu" / "_native" / "libzstdtpu.so"
+    objs = sorted(str(o) for o in (ndir / "build").glob("*.o")
+                  if o.name != "xxh64.o")
+    so.unlink()
+    subprocess.run(["cc", "-shared", "-o", str(so), *objs, "-lm"],
+                   check=True, capture_output=True, timeout=120)
+    return str(so), str(ndir)
+
+
+def test_partial_reference_library_is_rebuilt(tmp_path, monkeypatch):
+    """A library that loads but lacks zt_xxh64 (zstd_tpu's binding raises
+    AttributeError) is not whole; ensure_whole removes it and makes it
+    again, and reference_native() takes the AttributeError as a lost build:
+    it makes the library whole and binds it under a name of its own, since
+    the partial one stays mapped under its name."""
+    from tests import refnative
+    from zstd_tpu import native as jnative
+    so, ndir = _plant_partial(tmp_path)
+    assert not refnative.is_whole(so)
+    monkeypatch.setattr(jnative, "_SO_PATH", so)
+    monkeypatch.setattr(jnative, "_native", None)
+    monkeypatch.setattr(jnative, "_tried", False)
+    with pytest.raises(AttributeError, match="zt_xxh64"):
+        get_native()                    # loads the partial library
+    lib = refnative.reference_native(so_path=so, native_dir=ndir)
+    assert lib is not None and get_native() is lib
+    assert refnative.is_whole(so)
+    assert lib.xxh64(b"abc", 0) == txxh._xxh64_py(b"abc", 0)
+    so2, ndir2 = _plant_partial(tmp_path / "again")
+    assert refnative.ensure_whole(so2, ndir2) and refnative.is_whole(so2)

@@ -29,8 +29,9 @@ SOURCES = ("extract.cu", "fse_chain.cu", "huf_decode.cu", "exec_seq.cu",
            "lazy_resolve.cu", "xla_walk.cu", "ldm_fingerprint.cu",
            "ldm_lookback.cu", "seq_merge.cu", "seq_finish.cu")
 HOST_SOURCES = ("host/cblock.c", "host/decode.c", "host/encode.c",
-                "host/fast.c", "host/huf.c", "host/lazy.c", "host/lz4.c",
-                "host/opt.c", "host/plan.c", "host/row.c", "host/xxh64.c")
+                "host/fast.c", "host/huf.c", "host/lazy.c", "host/ldm.c",
+                "host/lz4.c", "host/opt.c", "host/plan.c", "host/row.c",
+                "host/xxh64.c")
 HOST_LIB = "host"
 
 SMEM_LIMIT = 232448   # dynamic shared memory an H100 block may use (bytes)
@@ -93,6 +94,7 @@ _HOST_SIGNATURES = {
     "zt_lazy_fill_long": (None, [_P, _L, _L, _I, _P]),
     "zt_lazy_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
                              _I, _I, _I, _I, _I, _I, _P, _P, _P, _I]),
+    "zt_ldm_walk": (_I64, [_P, _L, _L, _L, _P, _P, _L, _L, _I, _L, _L, _P]),
     "zt_row_fill": (None, [_P, _L, _L, _I, _I, _I, _P, _P, _P, _P, _I]),
     "zt_row_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
                             _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I]),

@@ -8,18 +8,23 @@ handling, stdout rules, --rm, -f, -k).
 Engine selection: the host codec by default; --engine gpu (or tpu, the
 same, so command lines written for zstd_tpu run unchanged) sends levels
 1-2 without a dictionary through the device encode (pipeline.compress:
-the extract and fse_chain kernels) and -d through the device decode
-(device_decoder.device_decompress: the literal_pool and exec_seq kernels).
---engine alone decides: no environment variable moves the path. The device
+the extract and fse_chain kernels), --long[=N] at any level without a
+dictionary or a target block size through the sharded long-distance
+matcher (parallel.compress_long_sharded: the ldm_fingerprint and
+ldm_lookback kernels, the host's gap parse), and -d through the device
+decode (device_decoder.device_decompress: the literal_pool and exec_seq
+kernels). --engine alone decides: no environment variable moves the path.
+The device
 path runs on the CUDA card and raises where there is none; main(argv,
 device="cpu") runs it through the kernels' plain versions instead (the
 tests). torch is imported on the device path only.
 
-Two of zstd_tpu's faults are not inherited: ZSTD_TPU_ENGINE set to anything
-does not move the encode onto the device path (zstd_tpu/cli.py:146), and
-lz4 input with bytes after its last frame is an error (exit 1), as trailing
-bytes after zstd frames are, where zstd_tpu decodes the frames and exits 0
-(:274-280).
+Three of zstd_tpu's faults are not inherited: ZSTD_TPU_ENGINE set to
+anything does not move the encode onto the device path (zstd_tpu/cli.py:146);
+--long under --engine tpu at levels 1-2 is not dropped for the device encode
+without it (:235); and lz4 input with bytes after its last frame is an error
+(exit 1), as trailing bytes after zstd frames are, where zstd_tpu decodes
+the frames and exits 0 (:274-280).
 """
 
 from __future__ import annotations
@@ -237,6 +242,12 @@ def _compress_bytes(data: bytes, args) -> bytes:
         from .parallel.pzstd import pzstd_compress
         return pzstd_compress(data, level=level, checksum=checksum,
                               workers=nb_workers)
+    if (_on_device(args) and args.long is not None
+            and args.dictionary is None and not args.target_cblock):
+        from . import parallel
+        return parallel.compress_long_sharded(
+            data, level=level, checksum=checksum, long_log=args.long,
+            device=args.device)
     if _on_device(args) and level <= 2 and args.dictionary is None:
         from . import pipeline
         return pipeline.compress(data, level=max(level, 1), checksum=checksum,

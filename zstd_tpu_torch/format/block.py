@@ -24,6 +24,7 @@ import numpy as np
 from ..constants import (BT_COMPRESSED, BT_RAW, BT_RLE, MIN_MATCH,
                          REPCODE_INIT)
 from ..errors import Corruption
+from ..trace import RECORDER as _rec
 from . import opt
 from .ldm import find_sequences_ldm
 from . import huffman
@@ -116,6 +117,7 @@ def compress_block(full, block_start: int, block_end: int, window_low: int,
                                            window_low, state, cparams,
                                            ldm_ctx)
     strategy = cparams.strategy
+    t = _rec.on and _rec.begin("entropy")
     try:
         num_seq = seqs.nb_seq
         num_lit = len(seqs.literals)
@@ -127,6 +129,9 @@ def compress_block(full, block_start: int, block_end: int, window_low: int,
                                                         strategy)
     except _EmitRawBlock:
         return raw
+    finally:
+        if t:
+            _rec.end(t)
     payload = lit_section + seq_section
 
     max_c_size = n - _min_gain(n, strategy)
@@ -208,10 +213,16 @@ def compress_block_pieces(full, block_start, block_end, window_low, state,
     strategy = cparams.strategy
 
     def encode(sub, st, suspect):
-        lit_section, next_huf = compress_literals(
-            sub.literals, st.huf, strategy, disable=False,
-            suspect_uncompressible=suspect)
-        seq_section, next_fse = write_sequences_section(sub, st.fse, strategy)
+        t = _rec.on and _rec.begin("entropy")
+        try:
+            lit_section, next_huf = compress_literals(
+                sub.literals, st.huf, strategy, disable=False,
+                suspect_uncompressible=suspect)
+            seq_section, next_fse = write_sequences_section(sub, st.fse,
+                                                            strategy)
+        finally:
+            if t:
+                _rec.end(t)
         return lit_section + seq_section, next_huf, next_fse
 
     # Iterated keep-min optimal parse (levels 19+): several candidate

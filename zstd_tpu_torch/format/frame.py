@@ -29,6 +29,7 @@ from ..constants import (BLOCK_HEADER_SIZE, BLOCK_MAX_SIZE, BT_COMPRESSED,
                          WINDOWLOG_LIMIT_DEFAULT, ZSTD_MAGIC)
 from ..errors import Corruption, ZstdError, ZstdErrorCode
 from ..trace import GLOBAL_PROGRESSION
+from ..trace import RECORDER as _rec
 from ..xxhash64 import content_checksum
 from . import block
 from .block import (BlockCState, BlockDState, compress_block,
@@ -310,7 +311,10 @@ def compress_frame(data: bytes, cparams, checksum: bool = False,
         prog.consumed = pos - p0
         prog.produced = prog.flushed = len(out)
     if checksum:
+        t = _rec.on and _rec.begin("checksum")
         out += content_checksum(data).to_bytes(4, "little")
+        if t:
+            _rec.end(t)
     return bytes(out)
 
 

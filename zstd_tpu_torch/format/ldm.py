@@ -19,15 +19,52 @@ from __future__ import annotations
 import numpy as np
 
 from ..constants import MIN_MATCH
+from ..trace import RECORDER as _rec
 from .lazy import _ext_fwd, _off_base
 from .matchfinder import update_reps
-from .opt import (find_sequences_chainlazy, find_sequences_fast,
+from .opt import (chainlazy_fill, chainlazy_table_size,
+                  find_sequences_chainlazy, find_sequences_fast,
                   find_sequences_opt)
 from .sequences import SeqStore
 
 LDM_MIN_MATCH = 32          # minimum long-distance match length
 LDM_BUCKET = 4              # candidates kept per hash bucket
 _PRIME64 = np.uint64(0xCF1BBCDCB7A56463)
+
+
+class GapTables:
+    """The chain-lazy gap parser's tables, filled once a frame.
+
+    Each gap [gs, ge) is parsed on tables as a fresh fill over its window
+    [wl, gs) leaves them. A fresh fill would index up to 1 MiB a gap;
+    instead `all` indexes every position from the frame's first window
+    low on, in order, extended as the gaps advance, and each gap parses a
+    copy of it. The copy differs from a fresh fill only in
+    entries below wl (where the fresh one holds -1 or an older position
+    below wl), and the parser takes no candidate below its window low
+    (lz_search stops at the first, lz_search_long skips them), so the
+    parse, its sequences and the frame are the same."""
+
+    def __init__(self) -> None:
+        self.all = None          # every position of [start, upto)
+        self.fast_table = None   # the gap's copy (find_sequences_chainlazy)
+        self.start = 0
+        self.upto = 0
+
+    def at(self, full: np.ndarray, wl: int, gs: int, cparams) -> "GapTables":
+        """Tables as a fresh fill over [wl, gs) would leave them, for the
+        parser, in `fast_table`."""
+        size = chainlazy_table_size(cparams)
+        if (self.all is None or len(self.all) != size or self.start > wl
+                or self.upto > max(gs - 7, self.start)):
+            self.all = np.full(size, -1, dtype=np.int32)
+            self.fast_table = np.empty_like(self.all)
+            self.start = self.upto = wl
+        if gs - 7 > self.upto:
+            chainlazy_fill(full, self.upto, gs, cparams, self.all)
+            self.upto = gs - 7
+        np.copyto(self.fast_table, self.all)
+        return self
 
 
 class LdmState:
@@ -64,6 +101,7 @@ class LdmState:
                       ^ (h8(32) >> np.uint64(7)) ^ (h8(48) >> np.uint64(13)))
             self.anchors = np.nonzero((self.h >> self.rate_shift) == 0)[0]
         self.table: dict[int, list[int]] = {}
+        self.gap_tables = GapTables()
         self._inserted_upto = 0
         self._anchor_cursor = 0
 
@@ -131,9 +169,14 @@ def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
                        window_low: int, reps: tuple, cparams,
                        ldm: LdmState) -> tuple[SeqStore, tuple]:
     """LDM-wrapped sequence extraction: long matches partition the block;
-    the inner strategy compresses the gaps."""
+    the inner strategy compresses the gaps. While trace.recording() is on:
+    spans `ldm_walk` (the long matches) and `gap_parse` (the rest)."""
+    t = _rec.on and _rec.begin("ldm_walk")
     ldm.insert_upto(block_start)
     longs = ldm.find_long_matches(block_start, block_end)
+    if t:
+        _rec.end(t)
+    t = _rec.on and _rec.begin("gap_parse")
 
     # inner matcher window is capped: LDM owns the long range
     inner_window = min(1 << 20, 1 << cparams.window_log)
@@ -150,13 +193,16 @@ def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
         wl = max(window_low, gs - inner_window)
         # Same strategy dispatch as plain blocks (ZSTD_selectBlockCompressor
         # role): LDM wraps the LEVEL's inner match finder
-        # (zstd_compress.c:3263-3292), each gap with fresh tables. The
-        # fast parse never declines: each sequence covers at least mls >= 5
-        # bytes, and it has room for n / 4 + 16
+        # (zstd_compress.c:3263-3292), each gap with tables as a fresh
+        # fill of its window leaves them (GapTables). The fast parse never
+        # declines: each sequence covers at least mls >= 5 bytes, and it
+        # has room for n / 4 + 16
         if cparams.strategy == 1:
             return find_sequences_fast(full, gs, ge, wl, r, cparams)
         if cparams.strategy in (2, 3, 4, 5):
-            res = find_sequences_chainlazy(full, gs, ge, wl, r, cparams)
+            res = find_sequences_chainlazy(
+                full, gs, ge, wl, r, cparams,
+                state=ldm.gap_tables.at(full, wl, gs, cparams))
             if res is not None:
                 return res
         return find_sequences_opt(full, gs, ge, wl, r, cparams)
@@ -182,7 +228,10 @@ def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
     mbs.extend(seqs.ml_base.tolist())
     lit_parts.append(seqs.literals)
 
-    return SeqStore(np.array(lls, dtype=np.int32),
-                    np.array(obs, dtype=np.int32),
-                    np.array(mbs, dtype=np.int32),
-                    b"".join(lit_parts)), r
+    out = SeqStore(np.array(lls, dtype=np.int32),
+                   np.array(obs, dtype=np.int32),
+                   np.array(mbs, dtype=np.int32),
+                   b"".join(lit_parts))
+    if t:
+        _rec.end(t)
+    return out, r

@@ -201,14 +201,9 @@ def find_sequences_shallow_dp(full: np.ndarray, block_start: int,
         min(max(cparams.min_match, 4), 6), 32, 8, ctx=state.opt_ctx))
 
 
-def find_sequences_chainlazy(full: np.ndarray, block_start: int,
-                             block_end: int, window_low: int, reps: tuple,
-                             cparams, state=None,
-                             ) -> tuple[SeqStore, tuple] | None:
-    """Hash-chain lazy parse via the C matchfinder (zstd_lazy.c
-    greedy/lazy/lazy2 role; the --long gap parser of strategies 2-5).
-    Depth = 2^search_log attempts, lazy deferral steps scale with
-    strategy."""
+def _chainlazy_shape(cparams):
+    """(hash_log, chain_log, hlog_long, mls, depth, defer) of the chain-lazy
+    parse at `cparams`."""
     hash_log = min(max(cparams.hash_log, 14), 24)
     chain_log = min(max(cparams.chain_log, 14), 26)
     strat = cparams.strategy
@@ -229,17 +224,45 @@ def find_sequences_chainlazy(full: np.ndarray, block_start: int,
     # at 2^chain_log; the 8-byte 2-way buckets keep absolute positions so
     # far-window and dictionary-prefix long matches stay findable
     hlog_long = min(max(cparams.hash_log, 15), 22)
-    buf, fresh = _table(state, "fast_table", (1 << hash_log)
-                        + (1 << chain_log) + (2 << hlog_long))
+    return hash_log, chain_log, hlog_long, mls, depth, defer
+
+
+def chainlazy_table_size(cparams) -> int:
+    """Entries of the chain-lazy parse's table buffer (head, chain, long)."""
+    hash_log, chain_log, hlog_long = _chainlazy_shape(cparams)[:3]
+    return (1 << hash_log) + (1 << chain_log) + (2 << hlog_long)
+
+
+def chainlazy_fill(full: np.ndarray, start: int, end: int, cparams,
+                   buf: np.ndarray) -> None:
+    """Index positions [start, end - 7) into a chain-lazy table buffer, in
+    order (what a fresh table of find_sequences_chainlazy is filled with
+    over its window prefix)."""
+    hash_log, chain_log, hlog_long, mls = _chainlazy_shape(cparams)[:4]
+    head = buf[: 1 << hash_log]
+    chain = buf[1 << hash_log : (1 << hash_log) + (1 << chain_log)]
+    tlong = buf[(1 << hash_log) + (1 << chain_log) :]
+    native.lazy_fill(full, start, end, hash_log, chain_log, mls, head, chain)
+    native.lazy_fill_long(full, start, end, hlog_long, tlong)
+
+
+def find_sequences_chainlazy(full: np.ndarray, block_start: int,
+                             block_end: int, window_low: int, reps: tuple,
+                             cparams, state=None,
+                             ) -> tuple[SeqStore, tuple] | None:
+    """Hash-chain lazy parse via the C matchfinder (zstd_lazy.c
+    greedy/lazy/lazy2 role; the --long gap parser of strategies 2-5).
+    Depth = 2^search_log attempts, lazy deferral steps scale with
+    strategy."""
+    hash_log, chain_log, hlog_long, mls, depth, defer = \
+        _chainlazy_shape(cparams)
+    buf, fresh = _table(state, "fast_table", chainlazy_table_size(cparams))
     head = buf[: 1 << hash_log]
     chain = buf[1 << hash_log : (1 << hash_log) + (1 << chain_log)]
     tlong = buf[(1 << hash_log) + (1 << chain_log) :]
     if fresh and block_start > window_low:
         # index the window prefix so the parse can match into it
-        native.lazy_fill(full, window_low, block_start, hash_log, chain_log,
-                         mls, head, chain)
-        native.lazy_fill_long(full, window_low, block_start, hlog_long,
-                              tlong)
+        chainlazy_fill(full, window_low, block_start, cparams, buf)
     return _store(full, block_start, block_end, native.lazy_parse(
         full, window_low, block_start, block_end, reps, hash_log, chain_log,
         mls, depth, defer, 8, head, chain, tlong, hlog_long))

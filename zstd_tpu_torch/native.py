@@ -4,7 +4,7 @@ Copy of the methods of zstd_tpu/native.py's _Native that the port's host
 code calls, over the port's own copy of the C (built with the host C
 compiler at first use by _kernels.host()): the parsers and whole-frame
 encoders, the entropy planning and encoders, the block decoder and XXH64,
-and the device encode's batch planner.
+the device encode's batch planner and the long-distance matcher's walk.
 The parsers take the whole input `full` (uint8) and absolute positions, and
 return (ll, ob, mb, new_reps): int32 literal lengths, spec Offset_Values
 and match lengths - 3. There is no fallback: without a C compiler every
@@ -107,6 +107,26 @@ def lazy_fill_long(full: np.ndarray, start: int, end: int, hlog_long: int,
     full = np.ascontiguousarray(full)
     _kernels.host().zt_lazy_fill_long(_ptr(full), start, end, hlog_long,
                                       _ptr(table_long))
+
+
+def ldm_walk(full: np.ndarray, block_start: int, block_end: int,
+             anchors: np.ndarray, cands: np.ndarray, lo: int, hi: int,
+             window: int, min_match: int) -> np.ndarray:
+    """The long-match walk over anchors[lo:hi] (int64, ascending) and their
+    candidates (int32[n, bucket], -1 empty): int64[k, 3] rows of (pos,
+    length, dist) of the committed long matches, in position order."""
+    full = np.ascontiguousarray(full)
+    anchors = np.ascontiguousarray(anchors, dtype=np.int64)
+    cands = np.ascontiguousarray(cands, dtype=np.int32)
+    if (cands.ndim != 2 or len(cands) != len(anchors)
+            or not 0 <= lo <= hi <= len(anchors)):
+        raise ValueError("ldm_walk: anchors, candidates and [lo, hi) "
+                         "do not agree")
+    out = np.empty((max(hi - lo, 0), 3), dtype=np.int64)
+    k = _kernels.host().zt_ldm_walk(
+        _ptr(full), len(full), block_start, block_end, _ptr(anchors),
+        _ptr(cands), lo, hi, cands.shape[1], window, min_match, _ptr(out))
+    return out[:k]
 
 
 def lazy_parse(full: np.ndarray, window_low: int, block_start: int,

@@ -18,7 +18,8 @@ contiguous chunk of m positions a rank:
   recency semantics, the last entries inserted before the anchor's block;
 - an all_gather gives every rank every owner's anchors and candidates, and
   `find_long_matches` replays the host greedy verify/commit walk against
-  them (ShardedLdmState stands in for format/ldm.LdmState).
+  them in the host C (csrc/host/ldm.c; ShardedLdmState stands in for
+  format/ldm.LdmState).
 
 There is no halo collective. The JAX module fills each shard's 64-byte
 fingerprint halo from the next shard with a ppermute, whose ring wraps: the
@@ -33,24 +34,40 @@ n - 63 positions, m = ceil(ceil(n_pos / world) / 128) · 128, cap = max(m //
 (32 · world), 8), block_size = min(window, 128 KiB), own_log = 20 -
 bit_length(world - 1) above one rank. Compaction keys are int64 here,
 where JAX's u32 route·2^26 + p overlaps once m passes 2^26 (ROADMAP §3).
+
+While trace.recording() is on, a call of compress_long_sharded is one span
+tree: the root `compress_long`; `ldm_discover` (ShardedLdmState's
+construction) with its children `ldm_stage_in` (the chunk's upload),
+`ldm_fingerprint` (anchor_keys and the route to the owners),
+`ldm_lookback` and `ldm_fetch` (the copy to the host and its sort); then,
+per block, `ldm_walk` (find_long_matches), `gap_parse` and `entropy`
+(format/ldm.py, format/block.py); last `checksum` (format/frame.py). COUNTS
+counts the work whether recording is on or not.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import native
 from ..constants import BLOCK_MAX_SIZE
 from ..format.frame import compress_frame
-from ..format.lazy import _ext_fwd
-from ..format.ldm import LDM_MIN_MATCH
+from ..format.ldm import LDM_MIN_MATCH, GapTables
 from ..ops.ldm import HASH_LOG, SPAN, anchor_keys, lookback, owner_entries
 from ..params import get_cparams
 from ..pipeline import _resolve_device
+from ..trace import RECORDER as _rec
 from .shard_compress import ShardGroup, gather_rows, make_group
+
+# the long path's work since the process started: calls of
+# compress_long_sharded; anchors kept after the cap (each state's); long
+# matches committed by find_long_matches
+COUNTS = {"calls": 0, "anchors": 0, "long_matches": 0}
 
 
 def own_log(world: int) -> int:
@@ -121,8 +138,15 @@ def discover(chunk: torch.Tensor, valid: int, gbase: int,
     the look-back). Returns (pos int32[world * cap], cand int32[world * cap,
     LDM_BUCKET]): the anchors this rank OWNS, sorted by (key, pos), -1
     padded, and their candidates."""
-    return lookback(owner_entries_of(chunk, valid, gbase, group, cap),
-                    block_size, window_size)
+    t = _rec.on and _rec.begin("ldm_fingerprint")
+    entries = owner_entries_of(chunk, valid, gbase, group, cap)
+    if t:
+        _rec.end(t)
+    t = _rec.on and _rec.begin("ldm_lookback")
+    out = lookback(entries, block_size, window_size)
+    if t:
+        _rec.end(t)
+    return out
 
 
 class ShardedLdmState:
@@ -136,24 +160,30 @@ class ShardedLdmState:
 
     def __init__(self, full: np.ndarray, window_log: int,
                  group: ShardGroup | None = None, device=None):
+        span = _rec.on and _rec.begin("ldm_discover")
         group = _resolve_group(group, device)
         dev = group.device if group is not None else _resolve_device(device)
         world = 1 if group is None else group.world
         rank = 0 if group is None else group.rank
         self.full = full
         self.window_size = 1 << window_log
+        self.gap_tables = GapTables()
         n = len(full)
         lay = layout(n, world, self.window_size)
         m = lay["m"]
         a = rank * m
+        t = _rec.on and _rec.begin("ldm_stage_in")
         chunk = np.zeros(m + SPAN, dtype=np.uint8)
         if a < n:
             piece = full[a:min(a + m + SPAN, n)]
             chunk[:len(piece)] = piece
         valid = min(max(lay["n_pos"] - a, 0), m)
-        pos, cand = discover(torch.from_numpy(chunk).to(dev), valid, a,
-                             group, lay["cap"], lay["block_size"],
-                             self.window_size)
+        chunk = torch.from_numpy(chunk).to(dev)
+        if t:
+            _rec.end(t)
+        pos, cand = discover(chunk, valid, a, group, lay["cap"],
+                             lay["block_size"], self.window_size)
+        t = _rec.on and _rec.begin("ldm_fetch")
         if group is not None:
             pos = gather_rows(pos, group)
             cand = gather_rows(cand, group)
@@ -164,6 +194,11 @@ class ShardedLdmState:
         order = np.argsort(pos, kind="stable")
         self.anchors = pos[order].astype(np.int64)
         self.cands = cand[order]
+        if t:
+            _rec.end(t)
+        COUNTS["anchors"] += len(self.anchors)
+        if span:
+            _rec.end(span)
 
     # LdmState interface ------------------------------------------------
     def insert_upto(self, pos: int) -> None:
@@ -171,36 +206,16 @@ class ShardedLdmState:
 
     def find_long_matches(self, block_start: int, block_end: int
                           ) -> list[tuple[int, int, int]]:
-        full = self.full
-        n = len(full)
-        lo = np.searchsorted(self.anchors, block_start)
-        hi = np.searchsorted(self.anchors,
-                             max(block_end - LDM_MIN_MATCH, block_start))
-        out = []
-        cursor = block_start
-        for ai in range(lo, hi):
-            p = int(self.anchors[ai])
-            if p < cursor:
-                continue
-            best_len = 0
-            best_c = -1
-            for c in self.cands[ai]:
-                c = int(c)
-                if c < 0 or c >= p or p - c > self.window_size:
-                    continue
-                limit = min(block_end - p, n - p)
-                ln = _ext_fwd(full, p, c, limit)
-                if ln > best_len:
-                    best_len = ln
-                    best_c = c
-            if best_len >= LDM_MIN_MATCH:
-                s, c2 = p, best_c
-                while s > cursor and c2 > 0 and full[s - 1] == full[c2 - 1]:
-                    s -= 1
-                    c2 -= 1
-                    best_len += 1
-                out.append((s, best_len, s - c2))
-                cursor = s + best_len
+        """The host greedy verify/commit walk over the block's anchors, in
+        the host C (csrc/host/ldm.c). Returns [(pos, length, dist), ...] in
+        position order."""
+        lo = int(np.searchsorted(self.anchors, block_start))
+        hi = int(np.searchsorted(self.anchors,
+                                 max(block_end - LDM_MIN_MATCH, block_start)))
+        out = list(map(tuple, native.ldm_walk(
+            self.full, block_start, block_end, self.anchors, self.cands, lo,
+            hi, self.window_size, LDM_MIN_MATCH).tolist()))
+        COUNTS["long_matches"] += len(out)
         return out
 
 
@@ -214,10 +229,19 @@ def compress_long_sharded(data: bytes, level: int = 1, checksum: bool = False,
     the initialised default group (make_group(device)), else a world of one
     on `device` (the card by default; device="cpu" runs the plain
     versions)."""
-    n = len(data)
-    cparams = get_cparams(level, n)
-    wlog = max(cparams.window_log, min(long_log, max(n - 1, 1).bit_length()))
-    cparams = dataclasses.replace(cparams, window_log=wlog)
-    full = np.frombuffer(data, dtype=np.uint8)
-    state = ShardedLdmState(full, wlog, group=group, device=device)
-    return compress_frame(data, cparams, checksum=checksum, ldm_state=state)
+    root = _rec.on and _rec.begin_call("compress_long",
+                                       time.perf_counter_ns())
+    COUNTS["calls"] += 1
+    try:
+        n = len(data)
+        cparams = get_cparams(level, n)
+        wlog = max(cparams.window_log,
+                   min(long_log, max(n - 1, 1).bit_length()))
+        cparams = dataclasses.replace(cparams, window_log=wlog)
+        full = np.frombuffer(data, dtype=np.uint8)
+        state = ShardedLdmState(full, wlog, group=group, device=device)
+        return compress_frame(data, cparams, checksum=checksum,
+                              ldm_state=state)
+    finally:
+        if root:
+            _rec.end(root)
