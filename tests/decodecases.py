@@ -63,6 +63,33 @@ def overrun_frame(frame: bytes) -> bytes:
     return bytes(bad)
 
 
+def sequence_sections(blocks: bytes) -> list[bytes]:
+    """The sequences sections of the compressed blocks in `blocks` (a
+    frame's bytes from its first block header), each cut where its literals
+    section ends, as the device decode's host parse cuts it."""
+    out, p, last = [], 0, False
+    while not last:
+        bh = int.from_bytes(blocks[p:p + 3], "little")
+        last, btype, bsize = bh & 1, (bh >> 1) & 3, bh >> 3
+        p += 3
+        if btype == 2:
+            b = blocks[p:p + bsize]
+            ltype, sf = b[0] & 3, (b[0] >> 2) & 3
+            if ltype < 2:       # raw or RLE: the size fills the header
+                lh = (1, 2, 1, 3)[sf]
+                regen = int.from_bytes(b[:lh], "little") >> (3 if lh == 1
+                                                              else 4)
+                used = lh + (regen if ltype == 0 else 1)
+            else:               # Huffman: then the compressed size
+                lh, shift, width = ((3, 14, 10), (3, 14, 10), (4, 18, 14),
+                                    (5, 22, 18))[sf]
+                v = int.from_bytes(b[:lh], "little")
+                used = lh + ((v >> shift) & ((1 << width) - 1))
+            out.append(b[used:])
+        p += 1 if btype == 1 else bsize
+    return out
+
+
 def repeated_pieces(n: int = 200_000, seed: int = 0) -> bytes:
     """n bytes of 48-byte random pieces, each repeated once: a level-1 frame
     of it has raw literals (random bytes do not compress) and one match of

@@ -27,7 +27,8 @@ import pytest
 import zstd_tpu
 from tests.bigcorpus import big_corpus
 from tests.conftest import gen_text
-from tests.decodecases import overrun_frame, repeated_pieces
+from tests.decodecases import (overrun_frame, repeated_pieces,
+                               sequence_sections)
 from tests.hostplain import plain_branches
 from zstd_tpu import device_decoder as jdec
 from zstd_tpu import xxhash64 as jxxh
@@ -53,7 +54,7 @@ from zstd_tpu_torch.parallel import pzstd as tpz
 FIXTURES = pathlib.Path(__file__).resolve().parent / "data" / "torch_decode"
 NAMES = sorted(json.loads((FIXTURES / "manifest.json").read_text()))
 BIG = big_corpus(256 * 1024)
-C_CALLS = ("decode_sequences", "decompress_block", "decompress_blocks",
+C_CALLS = ("parse_frame", "decompress_block", "decompress_blocks",
            "xxh64", "fse_normalize", "fse_write_ncount", "fse_build_ctable",
            "fse_compress_2state", "huf_build_write", "huf_encode",
            "huf_encode4", "encode_sequences", "split_points", "plan_batch")
@@ -168,43 +169,42 @@ PARSED = NAMES + ["big256k_l1", "pieces_l1"]
 @pytest.mark.parametrize("name", PARSED)
 def test_parse_three_ways(name, spy, monkeypatch):
     """The parse's fields (lanes, tables, pool segments, ll, ml, off, n):
-    C branch == plain branch == zstd_tpu's C branch."""
+    C branch == plain branch == zstd_tpu's C branch. The C branch is one
+    call of zt_parse_frame a frame, none declined."""
     blob = frame(name)
     want = _jobs(jdec._parse_jobs(blob, 31))
     got = _jobs(tdec._parse_jobs(blob, 31))
-    n_sections = spy.calls["decode_sequences"]
-    assert spy.declines["decode_sequences"] == 0
+    n_calls = spy.calls["parse_frame"]
+    assert spy.declines["parse_frame"] == 0
     monkeypatch.setattr(tdec, "_parse_frame", tdec._parse_frame_plain)
     plain = _jobs(tdec._parse_jobs(blob, 31))
-    assert spy.calls["decode_sequences"] == n_sections
+    assert spy.calls["parse_frame"] == n_calls
     assert got == want
     assert plain == want
-    assert n_sections > 0 or name in ("framegen_400.zst", "framegen_403.zst",
-                                      "framegen_404.zst", "framegen_408.zst",
-                                      "framegen_411.zst")
+    assert n_calls == sum(kind == "dev" for kind, _, _ in want) > 0
 
 
 def _table_modes(blobs) -> list[list[tuple]]:
     """Per frame, each sequences section's (LL, OF, ML) table modes, read
-    from the sections the port's parse hands to the C."""
+    from the blocks the port's parse hands to the C."""
     seen = []
-    orig = tnative.decode_sequences
+    orig = tnative.parse_frame
 
-    def record(ctx, section):
-        b = bytes(section)
-        k = 1 if b[0] < 128 else 2 if b[0] < 255 else 3
-        if b[0] and len(b) > k:
-            seen[-1].append(((b[k] >> 6) & 3, (b[k] >> 4) & 3,
-                             (b[k] >> 2) & 3))
-        return orig(ctx, section)
+    def record(src, off, *args):
+        for b in sequence_sections(bytes(src[off:])):
+            k = 1 if b[0] < 128 else 2 if b[0] < 255 else 3
+            if b[0] and len(b) > k:
+                seen[-1].append(((b[k] >> 6) & 3, (b[k] >> 4) & 3,
+                                 (b[k] >> 2) & 3))
+        return orig(src, off, *args)
 
-    tnative.decode_sequences = record
+    tnative.parse_frame = record
     try:
         for blob in blobs:
             seen.append([])
             tdec._parse_frame(blob, 0, 31)
     finally:
-        tnative.decode_sequences = orig
+        tnative.parse_frame = orig
     return seen
 
 
@@ -219,15 +219,17 @@ def test_parsed_frames_reach_repeat_and_rle_tables():
 
 
 def test_overrun_is_refused_after_the_c_parse(spy):
-    """The port's refusal of literal lengths past the block's literals is
-    reached after the C parse, on both entries and in both branches."""
+    """The port's refusal of literal lengths past the block's literals:
+    in the C parse, after the block's sequences are decoded (its own
+    refusal code), and in the plain branch after the Python sequence
+    decode; on both entries the same error."""
     blob = overrun_frame(tcodec.compress(BIG, level=1))
     spy.reset()
     for fn in (tdec._parse_frame, tdec._parse_frame_plain):
         with pytest.raises(tdec.Corruption, match="literal buffer overrun"):
             fn(blob, 0, 31)
-    assert spy.calls["decode_sequences"] == 1
-    assert spy.declines["decode_sequences"] == 0
+    assert spy.calls["parse_frame"] == 1
+    assert spy.declines["parse_frame"] == 1
 
 
 # ---- format.frame.decompress_frame ----------------------------------------

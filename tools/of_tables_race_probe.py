@@ -13,10 +13,11 @@ The C runs outside the GIL, so pzstd's decode threads may do just that.
 zstd_tpu_torch/csrc/host/decode.c initialises the tables at compile time.
 
 The window is open once per process, so each trial is a fresh process:
-`threads` threads wait on a barrier, then each decodes the sequences
-sections of a level-3 frame of tests/bigcorpus.big_corpus through the C
-(`decode_sequences`, which reaches the tables after the section's first
-bytes, on one decoder context a thread) and the whole frame
+`threads` threads wait on a barrier, then each decodes the sequences of a
+level-3 frame of tests/bigcorpus.big_corpus through the C (zstd_tpu: each
+sequences section by `decode_sequences`, which reaches the tables after the
+section's first bytes, on one decoder context a thread; zstd_tpu_torch: the
+frame's blocks in one call of `parse_frame`) and the whole frame
 (`format.frame.decompress_frame`). Runs on the CPU; prints, for each
 library, the trials and the decodes that differed.
 """
@@ -32,52 +33,44 @@ import threading
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _sections(frame: bytes) -> list[bytes]:
-    """The sequences sections of the frame's compressed blocks, cut where the
-    port's host parse cuts them."""
-    from zstd_tpu_torch import device_decoder, native
-    found = []
-    orig = native.decode_sequences
-
-    def record(ctx, section):
-        found.append(bytes(section))
-        return orig(ctx, section)
-
-    native.decode_sequences = record
-    try:
-        device_decoder._parse_frame(frame, 0, 31)
-    finally:
-        native.decode_sequences = orig
-    return found
-
-
 def child(lib: str, threads: int) -> int:
     """One trial: prints the number of decodes that differed."""
     sys.path.insert(0, ROOT)
     from tests.bigcorpus import big_corpus
+    from tests.decodecases import sequence_sections
     from zstd_tpu_torch.format import codec as tcodec
-    if lib == "zstd_tpu":
-        from zstd_tpu.format.frame import decompress_frame
-        from zstd_tpu.native import get_native
-        nat = get_native()
-        new, free, seqs = nat.dctx_new, nat.dctx_free, nat.decode_sequences
-    else:
-        from zstd_tpu_torch import native as nat
-        from zstd_tpu_torch.format.frame import decompress_frame
-        new, free, seqs = nat.dctx_new, nat.dctx_free, nat.decode_sequences
     data = big_corpus(256 * 1024)
     frame = tcodec.compress(data, level=3)
-    sections = _sections(frame)          # decodes in the port's library only
-    gate = threading.Barrier(threads)
+    if lib == "zstd_tpu":
+        from zstd_tpu.format.frame import decompress_frame, parse_frame_header
+        from zstd_tpu.native import get_native
+        nat = get_native()
+        # the sections where the port's host parse cuts them
+        sections = sequence_sections(
+            frame[parse_frame_header(frame, 31).header_size:])
 
-    def decode(ctx):
-        # None where the C refuses a section (zstd_tpu's device decode then
-        # raises "sequences section decode failed")
-        out = []
-        for s in sections:
-            res = seqs(ctx, s)
-            out.append(None if res is None else tuple(a.tolist() for a in res))
-        return out
+        def decode():
+            # None where the C refuses a section (zstd_tpu's device decode
+            # then raises "sequences section decode failed")
+            ctx = nat.dctx_new()
+            try:
+                return [None if r is None else tuple(a.tolist() for a in r)
+                        for r in (nat.decode_sequences(ctx, s)
+                                  for s in sections)]
+            finally:
+                nat.dctx_free(ctx)
+    else:
+        from zstd_tpu_torch import native as nat
+        from zstd_tpu_torch.format.frame import (decompress_frame,
+                                                 parse_frame_header)
+        body = parse_frame_header(frame, 31).header_size
+
+        def decode():
+            # a negative code where the C refuses the frame
+            r = nat.parse_frame(frame, body, 1 << 62, 1 << 30)
+            return r if isinstance(r, int) else \
+                tuple(r[k].tolist() for k in ("ll", "ml", "off"))
+    gate = threading.Barrier(threads)
 
     def one(k: int):
         gate.wait()
@@ -85,18 +78,12 @@ def child(lib: str, threads: int) -> int:
             # a block the C declines is decoded again by the Python branch,
             # so only a wrong content shows here
             return decompress_frame(frame, 0)[0] == data
-        ctx = new()
-        try:
-            return decode(ctx)
-        finally:
-            free(ctx)
+        return decode()
 
     with fut.ThreadPoolExecutor(max_workers=threads) as ex:
         got = list(ex.map(one, range(threads)))
     # the serial sequences, decoded after the tables are filled
-    ctx = new()
-    want = decode(ctx)
-    free(ctx)
+    want = decode()
     bad = sum(1 for k, g in enumerate(got)
               if ((g is not True) if k % 2 else (g != want)))
     print(bad)

@@ -120,7 +120,8 @@ _HOST_SIGNATURES = {
     "zt_dctx_free": (None, [_P]),
     "zt_decompress_block": (_I64, [_P, _P, _L, _P, _L, _L, _L, _L]),
     "zt_decompress_blocks": (_I64, [_P, _P, _L, _P, _L, _L, _L, _L, _P]),
-    "zt_decode_sequences": (_I64, [_P, _P, _L, _P, _P, _P, _L]),
+    "zt_parse_frame": (_I64, [_P, _L, _L, _L, _P, _L, _P, _P, _L, _P, _L,
+                              _P, _L, _P, _P, _P, _L, _P]),
     "zt_xxh64": (ctypes.c_uint64, [_P, ctypes.c_size_t, ctypes.c_uint64]),
     "zt_xxh64_state_size": (ctypes.c_size_t, []),
     "zt_xxh64_reset": (None, [_P, ctypes.c_uint64]),

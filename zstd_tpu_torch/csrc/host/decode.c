@@ -1108,14 +1108,18 @@ int64_t zt_decompress_blocks(void* vctx, const uint8_t* src, int64_t srcSize,
 /* decode a block's sequences section WITHOUT executing it: emits per-
  * sequence (litLen, matchLen, absolute offset) with repcodes resolved,
  * carrying FSE/repcode state across blocks in the ctx. Feeds the device
- * executor (zstd_tpu/device_decoder.py) so the host side of the device
- * decode path stays native-speed (role of the seqStore half of
+ * executor through zt_parse_frame so the host side of the device decode
+ * path stays native-speed (role of the seqStore half of
  * zstd_decompress_block.c ZSTD_decompressSequences split out).
- * src points at the sequences section. Returns nbseq (>=0) or -1. */
-int64_t zt_decode_sequences(void* vctx, const uint8_t* src, int64_t srcSize,
-                            int32_t* out_ll, int32_t* out_ml,
-                            int32_t* out_off, int64_t cap) {
-    ZtDCtx* ctx = (ZtDCtx*)vctx;
+ * src points at the sequences section. Returns nbseq (>=0), -1 on a corrupt
+ * section, or SEQ_NO_ROOM where nbseq > cap (ctx untouched, nothing
+ * written). */
+#define SEQ_NO_ROOM (-2)
+#define MAX_NBSEQ (0x7F00 + 0xFFFF)   /* the spec's largest nbSeq */
+
+static int64_t seq_section(ZtDCtx* ctx, const uint8_t* src, int64_t srcSize,
+                           int64_t* out_ll, int64_t* out_ml,
+                           int64_t* out_off, int64_t cap) {
     const uint8_t* p = src;
     const uint8_t* end = src + srcSize;
     if (p >= end) return -1;
@@ -1131,7 +1135,8 @@ int64_t zt_decode_sequences(void* vctx, const uint8_t* src, int64_t srcSize,
         p += 3;
     }
     if (nbseq == 0) return (p == end) ? 0 : -1;
-    if (nbseq > cap || p >= end) return -1;
+    if (nbseq > cap) return SEQ_NO_ROOM;
+    if (p >= end) return -1;
     int scm = *p++;
     if (scm & 3) return -1;
     int ll_mode = (scm >> 6) & 3, of_mode = (scm >> 4) & 3,
@@ -1188,13 +1193,308 @@ int64_t zt_decode_sequences(void* vctx, const uint8_t* src, int64_t srcSize,
             sof = nof.next[sof] + bits_at(&br, q_of, nbo);
             br.bit_pos = q_of;
         }
-        out_ll[i] = (int32_t)ll;
-        out_ml[i] = (int32_t)ml;
-        out_off[i] = (int32_t)offset;
+        out_ll[i] = ll;
+        out_ml[i] = ml;
+        out_off[i] = offset;
     }
     if (!bitrd_done(&br)) return -1;
     ctx->ll = nll; ctx->of = nof; ctx->ml = nml;
     ctx->seq_valid = 1;
     ctx->rep[0] = rep0; ctx->rep[1] = rep1; ctx->rep[2] = rep2;
     return nbseq;
+}
+
+/* ---- the device decode's host parse ----
+ * One frame's blocks walked in one call, as device_decoder._parse_blocks
+ * (the plain version) walks them, without decoding a literal stream: what
+ * the device decode takes, in caller-allocated arrays.
+ *
+ *   lanes  int64[laneCap][4]: a Huffman stream's start and end in src, its
+ *          symbol count, its table (a treeless section takes the previous
+ *          tree's)
+ *   lutSym, lutLen  uint8[tableCap][1 << LUT_LOG]: each tree's decode table
+ *          spread over the device's fixed window
+ *   segs   int64[segCap][4]: a literal-pool segment's start in the pool, its
+ *          lane, its start in the host pool, whether the device decodes it
+ *   pool   uint8[poolCap]: the host pool (raw and RLE blocks and literals)
+ *   ll, ml, off  int64[seqCap]: the frame-global sequences, with a zero-match
+ *          pseudo-sequence (offset 1) for each raw or RLE block and for each
+ *          block's trailing literals
+ *   totals int64[PT_COUNT]: the counts and sizes below
+ *
+ * src starts at the frame's first block header. Returns 0, or a PF_ code: a
+ * refusal at the point of the walk where the plain version raises, or
+ * PF_ROOM where some array was short (totals then hold what each needs;
+ * the walk ran to its end, so a call with that much room succeeds). */
+#define LUT_LOG 11        /* ops/decode_dev.MAX_TLOG */
+
+enum {
+    PF_BLOCK_HEADER = -1, PF_RAW_BLOCK = -2, PF_RLE_BLOCK = -3,
+    PF_EMPTY_PAYLOAD = -4, PF_LIT_HEADER = -5, PF_RAW_LITERALS = -6,
+    PF_RLE_LITERAL = -7, PF_HUF_HEADER = -8, PF_HUF_SECTION = -9,
+    PF_TREE = -10, PF_TREELESS = -11, PF_JUMP_MISSING = -12,
+    PF_JUMP_BAD = -13, PF_STREAM_SIZE = -14, PF_SENTINEL = -15,
+    PF_STREAM_CAP = -16, PF_SEQUENCES = -17, PF_OVERRUN = -18,
+    PF_RESERVED = -19, PF_OFFSET = -20, PF_ROOM = -21, PF_NO_MEMORY = -22,
+};
+enum { PT_N, PT_POOL_LEN, PT_END, PT_LANES, PT_TABLES, PT_SEGS, PT_SEQS,
+       PT_HOST_LEN, PT_COUNT };
+
+typedef struct {
+    int64_t *lanes, *segs, *ll, *ml, *off;
+    uint8_t *lut_sym, *lut_len, *pool;
+    int64_t lane_cap, table_cap, seg_cap, pool_cap, seq_cap;
+    int64_t n_lanes, n_tables, n_segs, n_seqs, host_len, pool_len;
+    int64_t pos;          /* content so far: the sum of ll + ml */
+    int64_t window;
+    int bad_offset;       /* refused after the walk, as the plain version */
+    int64_t* scratch;     /* a block's sequences where seqCap is short */
+} PfOut;
+
+static void pf_seg(PfOut* o, int64_t lane, int64_t host, int is_dev) {
+    if (o->n_segs < o->seg_cap) {
+        int64_t* s = o->segs + 4 * o->n_segs;
+        s[0] = o->pool_len; s[1] = lane; s[2] = host; s[3] = is_dev;
+    }
+    o->n_segs++;
+}
+
+/* n literal bytes for the host pool: copied from src, or rle repeated */
+static void pf_host(PfOut* o, const uint8_t* src, int rle, int64_t n) {
+    if (n == 0) return;
+    pf_seg(o, 0, o->host_len, 0);
+    if (o->host_len + n <= o->pool_cap) {
+        if (src) memcpy(o->pool + o->host_len, src, n);
+        else memset(o->pool + o->host_len, rle, n);
+    }
+    o->host_len += n;
+    o->pool_len += n;
+}
+
+/* a literal-only span: a pseudo-sequence of n literals and no match */
+static void pf_literals(PfOut* o, int64_t n) {
+    if (n == 0) return;
+    if (o->n_seqs < o->seq_cap) {
+        o->ll[o->n_seqs] = n; o->ml[o->n_seqs] = 0; o->off[o->n_seqs] = 1;
+    }
+    o->n_seqs++;
+    o->pos += n;
+}
+
+/* the sequences section of a block with lit_count literals */
+static int64_t pf_sequences(PfOut* o, ZtDCtx* ctx, const uint8_t* src,
+                            int64_t size, int64_t lit_count) {
+    int64_t room = o->seq_cap - o->n_seqs;
+    int64_t *ll = o->ll, *ml = o->ml, *off = o->off;
+    if (room > 0) { ll += o->n_seqs; ml += o->n_seqs; off += o->n_seqs; }
+    else room = 0;
+    int64_t nb = seq_section(ctx, src, size, ll, ml, off, room);
+    if (nb == SEQ_NO_ROOM) {
+        if (!o->scratch) {
+            o->scratch = malloc(3 * (size_t)MAX_NBSEQ * sizeof(int64_t));
+            if (!o->scratch) return PF_NO_MEMORY;
+        }
+        ll = o->scratch; ml = ll + MAX_NBSEQ; off = ml + MAX_NBSEQ;
+        nb = seq_section(ctx, src, size, ll, ml, off, MAX_NBSEQ);
+    }
+    if (nb < 0) return PF_SEQUENCES;
+    int64_t lits = 0, pos = o->pos;
+    for (int64_t i = 0; i < nb; i++) {
+        lits += ll[i];
+        int64_t match_start = pos + ll[i];
+        if (ml[i] > 0 && (off[i] > match_start || off[i] > o->window))
+            o->bad_offset = 1;
+        pos = match_start + ml[i];
+    }
+    /* the executor takes literal lengths within the block's literals */
+    if (lits > lit_count) return PF_OVERRUN;
+    o->n_seqs += nb;
+    o->pos = pos;
+    pf_literals(o, lit_count - lits);
+    return 0;
+}
+
+/* the decode table spread over the device window: entry i of a 2^tlog
+ * table covers [i << shift, (i + 1) << shift) */
+static void pf_table(PfOut* o, const HufDT* t) {
+    int64_t k = o->n_tables++;
+    if (k >= o->table_cap) return;
+    uint8_t* sym = o->lut_sym + (k << LUT_LOG);
+    uint8_t* len = o->lut_len + (k << LUT_LOG);
+    int shift = LUT_LOG - t->log;
+    for (int i = 0; i < (1 << LUT_LOG); i++) {
+        sym[i] = t->sym[i >> shift];
+        len[i] = t->nb[i >> shift];
+    }
+}
+
+/* a compressed block's literals section and sequences: q holds plen bytes
+ * of the block (fewer than its size where src ends first) */
+static int64_t pf_block(PfOut* o, ZtDCtx* ctx, const uint8_t* src,
+                        int64_t q, int64_t plen, int64_t stream_cap,
+                        int64_t* table) {
+    if (plen == 0) return PF_EMPTY_PAYLOAD;
+    const uint8_t* b = src + q;
+    int lbt = b[0] & 3, sf = (b[0] >> 2) & 3;
+    int64_t regen, used;
+    if (lbt == 0 || lbt == 1) {            /* raw / RLE literals */
+        int lh;
+        if (sf == 0 || sf == 2) { regen = b[0] >> 3; lh = 1; }
+        else if (sf == 1) {
+            if (plen < 2) return PF_LIT_HEADER;
+            regen = (b[0] >> 4) + ((int64_t)b[1] << 4); lh = 2;
+        } else {
+            if (plen < 3) return PF_LIT_HEADER;
+            regen = (b[0] >> 4) + ((int64_t)b[1] << 4)
+                    + ((int64_t)b[2] << 12);
+            lh = 3;
+        }
+        if (lbt == 0) {
+            if (plen < lh + regen) return PF_RAW_LITERALS;
+            pf_host(o, b + lh, 0, regen);
+            used = lh + regen;
+        } else {
+            if (plen < lh + 1) return PF_RLE_LITERAL;
+            pf_host(o, NULL, b[lh], regen);
+            used = lh + 1;
+        }
+    } else {                                /* compressed / treeless */
+        int lh = sf <= 1 ? 3 : sf + 2;
+        if (sf <= 1 && plen < 3) return PF_HUF_HEADER;
+        uint64_t v = 0;                     /* zero past the block's end */
+        for (int k = 0; k < lh && k < plen; k++)
+            v |= (uint64_t)b[k] << (8 * k);
+        int64_t csize;
+        if (sf <= 1) {
+            regen = (v >> 4) & 0x3FF; csize = (v >> 14) & 0x3FF;
+        } else if (sf == 2) {
+            regen = (v >> 4) & 0x3FFF; csize = (v >> 18) & 0x3FFF;
+        } else {
+            regen = (v >> 4) & 0x3FFFF; csize = (v >> 22) & 0x3FFFF;
+        }
+        if ((plen > lh ? plen - lh : 0) < csize) return PF_HUF_SECTION;
+        int64_t body = q + lh, body_len = csize;
+        if (lbt == 2) {                     /* fresh tree */
+            uint8_t weights[256];
+            int n_sym;
+            int consumed = huf_read_weights(src + body, body_len, weights,
+                                            &n_sym);
+            if (consumed < 0 || huf_build_dtable(&ctx->huf, weights,
+                                                 n_sym) < 0)
+                return PF_TREE;
+            *table = o->n_tables;
+            pf_table(o, &ctx->huf);
+            body += consumed;
+            body_len -= consumed;
+        } else if (*table < 0) {
+            return PF_TREELESS;
+        }
+        int64_t start[4], size[4], nsym[4];
+        int ns;
+        if (sf == 0) {                      /* one stream */
+            ns = 1;
+            start[0] = body; size[0] = body_len; nsym[0] = regen;
+        } else {                            /* four, after a jump table */
+            if (body_len < 6) return PF_JUMP_MISSING;
+            const uint8_t* j = src + body;
+            size[0] = j[0] | (j[1] << 8);
+            size[1] = j[2] | (j[3] << 8);
+            size[2] = j[4] | (j[5] << 8);
+            size[3] = body_len - 6 - size[0] - size[1] - size[2];
+            if (size[3] <= 0) return PF_JUMP_BAD;
+            int64_t seg = (regen + 3) / 4, rem = regen, at = body + 6;
+            ns = 4;
+            for (int t = 0; t < 4; t++) {
+                nsym[t] = (t < 3 && seg < rem) ? seg : rem;
+                rem -= nsym[t];
+                start[t] = at;
+                at += size[t];
+            }
+        }
+        for (int t = 0; t < ns; t++) {
+            if (size[t] == 0) return PF_STREAM_SIZE;
+            if (src[start[t] + size[t] - 1] == 0) return PF_SENTINEL;
+            if (size[t] > stream_cap || nsym[t] > stream_cap)
+                return PF_STREAM_CAP;
+            if (nsym[t]) {
+                pf_seg(o, o->n_lanes, 0, 1);
+                o->pool_len += nsym[t];
+            }
+            if (o->n_lanes < o->lane_cap) {
+                int64_t* l = o->lanes + 4 * o->n_lanes;
+                l[0] = start[t]; l[1] = start[t] + size[t];
+                l[2] = nsym[t]; l[3] = *table;
+            }
+            o->n_lanes++;
+        }
+        used = lh + csize;
+    }
+    return pf_sequences(o, ctx, b + used, plen - used, regen);
+}
+
+static int64_t pf_walk(PfOut* o, ZtDCtx* ctx, const uint8_t* src,
+                       int64_t srcSize, int64_t stream_cap, int64_t* end) {
+    int64_t p = 0, table = -1;
+    int last = 0;
+    while (!last) {
+        if (p + 3 > srcSize) return PF_BLOCK_HEADER;
+        uint32_t bh = (uint32_t)src[p] | ((uint32_t)src[p + 1] << 8)
+                      | ((uint32_t)src[p + 2] << 16);
+        p += 3;
+        last = bh & 1;
+        int btype = (bh >> 1) & 3;
+        int64_t bsize = bh >> 3;
+        if (btype == 0) {                  /* raw */
+            if (p + bsize > srcSize) return PF_RAW_BLOCK;
+            pf_host(o, src + p, 0, bsize);
+            pf_literals(o, bsize);
+            p += bsize;
+        } else if (btype == 1) {           /* RLE */
+            if (p >= srcSize) return PF_RLE_BLOCK;
+            pf_host(o, NULL, src[p], bsize);
+            pf_literals(o, bsize);
+            p += 1;
+        } else if (btype == 2) {           /* compressed */
+            int64_t plen = p + bsize <= srcSize ? bsize : srcSize - p;
+            int64_t r = pf_block(o, ctx, src, p, plen, stream_cap, &table);
+            if (r < 0) return r;
+            p += bsize;
+        } else {
+            return PF_RESERVED;
+        }
+    }
+    *end = p;
+    return o->bad_offset ? PF_OFFSET : 0;
+}
+
+int64_t zt_parse_frame(const uint8_t* src, int64_t srcSize, int64_t window,
+                       int64_t streamCap,
+                       int64_t* lanes, int64_t laneCap,
+                       uint8_t* lutSym, uint8_t* lutLen, int64_t tableCap,
+                       int64_t* segs, int64_t segCap,
+                       uint8_t* pool, int64_t poolCap,
+                       int64_t* ll, int64_t* ml, int64_t* off, int64_t seqCap,
+                       int64_t* totals) {
+    PfOut o = {lanes, segs, ll, ml, off, lutSym, lutLen, pool,
+               laneCap, tableCap, segCap, poolCap, seqCap,
+               0, 0, 0, 0, 0, 0, 0, window, 0, NULL};
+    ZtDCtx* ctx = zt_dctx_new();
+    if (!ctx) return PF_NO_MEMORY;
+    int64_t end = 0;
+    int64_t r = pf_walk(&o, ctx, src, srcSize, streamCap, &end);
+    free(o.scratch);
+    zt_dctx_free(ctx);
+    if (r < 0) return r;
+    totals[PT_N] = o.pos;
+    totals[PT_POOL_LEN] = o.pool_len;
+    totals[PT_END] = end;
+    totals[PT_LANES] = o.n_lanes;
+    totals[PT_TABLES] = o.n_tables;
+    totals[PT_SEGS] = o.n_segs;
+    totals[PT_SEQS] = o.n_seqs;
+    totals[PT_HOST_LEN] = o.host_len;
+    if (o.n_lanes > laneCap || o.n_tables > tableCap || o.n_segs > segCap
+        || o.host_len > poolCap || o.n_seqs > seqCap)
+        return PF_ROOM;
+    return 0;
 }

@@ -7,9 +7,11 @@ loops; zstd_decompress_block.c:1001 ZSTD_execSequence):
 
   host:   frame and block headers, literal-section headers, Huffman table
           descriptions, FSE sequence decode + repcode resolution (byte
-          serial, a few KB per block; in the port's copy of native/decode.c,
-          csrc/host/decode.c, as zstd_tpu does; _parse_frame_plain runs the
-          copied Python branch instead)
+          serial, a few KB per block): the frame header in Python, then
+          every block in one call of csrc/host/decode.c's zt_parse_frame
+          (zstd_tpu walks the blocks in Python and calls its C for each
+          sequences section; _parse_frame_plain is that walk with the
+          copied Python branches)
   device: ops/decode_dev.fused_frame_decode for each group of frames: every
           literal stream of every block decoded by the Huffman lane kernel,
           the literal pool assembled on the device, and the frame-global
@@ -304,21 +306,64 @@ class _ParsedFrame:
             setattr(self, k, v)
 
 
+# zt_parse_frame's refusals (csrc/host/decode.c, PF_*), each raised as the
+# plain version raises it at the same point of the walk: (the error code, or
+# None for a frame the device cannot take, and the message). A corrupt tree
+# description is refused with one message; the plain version says which
+# check failed.
+_SHORT = ZstdErrorCode.srcSize_wrong
+_CORRUPT = ZstdErrorCode.corruption_detected
+_PARSE_ERRORS = {
+    -1: (_SHORT, "truncated block header"),
+    -2: (_SHORT, "truncated raw block"),
+    -3: (_SHORT, "truncated RLE block"),
+    -4: (_CORRUPT, "empty block payload"),
+    -5: (_CORRUPT, "literals: truncated header"),
+    -6: (_CORRUPT, "literals: raw content truncated"),
+    -7: (_CORRUPT, "literals: missing RLE byte"),
+    -8: (_CORRUPT, "literals header truncated"),
+    -9: (_CORRUPT, "literals section truncated"),
+    -10: (_CORRUPT, "huffman tree: corrupt description"),
+    -11: (_CORRUPT, "treeless literals without a previous table"),
+    -12: (_CORRUPT, "4-stream literals: missing jump table"),
+    -13: (_CORRUPT, "4-stream literals: bad jump table"),
+    -14: (_CORRUPT, "literal stream size out of range"),
+    -15: (_CORRUPT, "huffman stream: missing sentinel"),
+    -16: (None, "literal stream exceeds device cap"),
+    -17: (_CORRUPT, "sequences section decode failed"),
+    -18: (_CORRUPT, "literal buffer overrun (device decode)"),
+    -19: (_CORRUPT, "reserved block type"),
+    -20: (_CORRUPT, "offset beyond window (device decode)"),
+}
+_FRAME_HEADER_MAX = 18     # magic, descriptor, window, dictionary id, size
+
+
 def _parse_frame(data: bytes, pos: int, window_log_max: int) -> _ParsedFrame:
-    """Parse one frame's blocks on the host: literal streams, Huffman tables,
+    """Parse one frame's blocks on the host in one call of
+    csrc/host/decode.c (zt_parse_frame): literal streams, Huffman tables,
     pool segments, and the frame-global sequence arrays (FSE sequence
-    decode + repcode resolution in C, one decoder context a frame, whose
-    tables and repcodes carry from block to block). No device work."""
-    ctx = native.dctx_new()
-    try:
-        def sequences(section: bytes):
-            res = native.decode_sequences(ctx, section)
-            if res is None:
-                raise Corruption("sequences section decode failed")
-            return res
-        return _parse_blocks(data, pos, window_log_max, sequences)
-    finally:
-        native.dctx_free(ctx)
+    decode + repcode resolution, one decoder context a frame, whose tables
+    and repcodes carry from block to block). No device work."""
+    hdr = parse_frame_header(data[pos : pos + _FRAME_HEADER_MAX],
+                             window_log_max)
+    base = pos + hdr.header_size
+    r = native.parse_frame(data, base, hdr.window_size or (1 << 62),
+                           _STREAM_CAP)
+    if isinstance(r, int):
+        code, msg = _PARSE_ERRORS[r]
+        if code is None:
+            raise _DeviceUnsupported(msg)
+        raise Corruption(msg) if code is _CORRUPT else ZstdError(code, msg)
+    start, end, n_syms, table = (r["lanes"] + [base, base, 0, 0]).T.tolist()
+    seg_start, seg_lane, seg_src, seg_dev = r["segs"].T.tolist()
+    return _ParsedFrame(
+        lanes=list(zip(map(data.__getitem__, map(slice, start, end)),
+                       n_syms)),
+        lane_tab=table, tables=list(zip(r["lut_sym"], r["lut_len"])),
+        segs=list(zip(seg_start, seg_lane, seg_src, map(bool, seg_dev))),
+        host_pool=r["host_pool"], pool_len=r["pool_len"], ll=r["ll"],
+        ml=r["ml"], off=r["off"], n=r["n"], end_pos=base + r["end"],
+        hdr=hdr)
 
 
 class _PlainSequences:
@@ -346,14 +391,16 @@ class _PlainSequences:
 
 def _parse_frame_plain(data: bytes, pos: int,
                        window_log_max: int) -> _ParsedFrame:
-    """_parse_frame with the Python branch of the sequence decode."""
+    """_parse_frame's plain version: the walk over blocks in Python, with
+    the Python tree reads, tables and sequence decode."""
     return _parse_blocks(data, pos, window_log_max, _PlainSequences())
 
 
 def _parse_blocks(data: bytes, pos: int, window_log_max: int,
                   sequences) -> _ParsedFrame:
-    """The body of _parse_frame; `sequences` decodes one block's sequences
-    section into (literal lengths, match lengths, absolute offsets)."""
+    """The body of _parse_frame_plain; `sequences` decodes one block's
+    sequences section into (literal lengths, match lengths, absolute
+    offsets)."""
     hdr = parse_frame_header(data[pos:], window_log_max)
     p = pos + hdr.header_size
     hst = litmod.HufDecodeState()

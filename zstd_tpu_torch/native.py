@@ -575,18 +575,78 @@ def decompress_blocks(ctx: int, src: bytes, src_off: int, dst: np.ndarray,
     return int(r), int(consumed.value)
 
 
-def decode_sequences(ctx: int, payload: bytes):
-    """Decode one block's sequences section (the FSE decode and the repcode
-    resolution) without executing it; the tables and repcodes carry in
-    ctx. Returns int32 (ll, ml, off) with absolute offsets, or None on a
-    corrupt section."""
-    cap = 0x7F00 + 0xFFFF + 16   # spec max nbSeq (RLE tables: 0 bits/seq)
-    ll = np.empty(cap, dtype=np.int32)
-    ml = np.empty(cap, dtype=np.int32)
-    off = np.empty(cap, dtype=np.int32)
-    src = np.frombuffer(payload, dtype=np.uint8)
-    n = _kernels.host().zt_decode_sequences(ctx, _ptr(src), len(src),
-                                            _ptr(ll), _ptr(ml), _ptr(off), cap)
-    if n < 0:
-        return None
-    return ll[:n], ml[:n], off[:n]
+# ---- the device decode's host parse (decode.c) ------------------------------
+
+# a Huffman stream's record from parse_frame, one int64 each: its start and
+# end in the bytes handed in, its symbol count, its table
+PARSE_LANE_FIELDS = ("start", "end", "n_syms", "table")
+# a literal-pool segment's record: its start in the pool, its lane (a
+# device segment), its start in the host pool (a host segment), whether the
+# device decodes it
+PARSE_SEG_FIELDS = ("start", "lane", "src", "is_dev")
+# the frame's totals: content length, literal-pool length, the end of its
+# last block (from the bytes' start), then the records and bytes of each
+# array
+PARSE_TOTALS = ("n", "pool_len", "end", "lanes", "tables", "segs", "seqs",
+                "host_len")
+PARSE_ROOM = -21              # some array was short: totals say how long
+PARSE_NO_MEMORY = -22
+_LUT = 1 << 11                # a table's entries (ops/decode_dev.MAX_TLOG)
+
+
+def _parse_room(m: int) -> dict:
+    """First guesses of the arrays' lengths for m bytes of blocks. A 4 MiB
+    level-1 frame of the port's takes 1.7 MB: 32 blocks with a table and
+    4 lanes each, and 137,265 sequences (12.4 B each). A frame past a
+    guess is parsed again with the lengths the first call counted."""
+    blocks = m // 4096 + 16
+    return dict(lanes=4 * blocks, tables=blocks, segs=5 * blocks,
+                host_len=m + 4096, seqs=m // 2 + 4096)
+
+
+def parse_frame(src, off: int, window: int, stream_cap: int):
+    """Walk one frame's blocks from src[off] (its first block header; src
+    any bytes-like object, read by pointer) in one C call: the Huffman
+    streams (records PARSE_LANE_FIELDS), each tree's decode table spread
+    over 2^11 entries (uint8 symbols and lengths), the literal pool's
+    segments (PARSE_SEG_FIELDS) and host bytes, the frame-global ll, ml and
+    off (int64, absolute offsets, literal-only pseudo-sequences included),
+    the content length `n`, the pool length and the `end` of the last
+    block, in a dict. Returns a negative int where the C refuses the frame
+    (decode.c's PF_ codes)."""
+    buf = np.frombuffer(src, dtype=np.uint8)
+    if not 0 <= off <= len(buf):
+        raise ValueError(f"parse_frame: offset {off} outside {len(buf)} B")
+    m = len(buf) - off
+    room = _parse_room(m)
+    totals = np.zeros(len(PARSE_TOTALS), dtype=np.int64)
+    for _ in range(2):
+        lanes = np.empty((room["lanes"], len(PARSE_LANE_FIELDS)), np.int64)
+        lut_sym = np.empty((room["tables"], _LUT), np.uint8)
+        lut_len = np.empty((room["tables"], _LUT), np.uint8)
+        segs = np.empty((room["segs"], len(PARSE_SEG_FIELDS)), np.int64)
+        pool = np.empty(room["host_len"], np.uint8)
+        seqs = np.empty((3, room["seqs"]), np.int64)
+        r = _kernels.host().zt_parse_frame(
+            buf.ctypes.data + off, m, window, stream_cap,
+            _ptr(lanes), room["lanes"], _ptr(lut_sym), _ptr(lut_len),
+            room["tables"], _ptr(segs), room["segs"], _ptr(pool),
+            room["host_len"], _ptr(seqs[0]), _ptr(seqs[1]), _ptr(seqs[2]),
+            room["seqs"], _ptr(totals))
+        if r != PARSE_ROOM:
+            break
+        room = dict(zip(PARSE_TOTALS, totals.tolist()))
+    else:
+        raise RuntimeError("zt_parse_frame: short of room with the lengths "
+                           "it counted")
+    if r == PARSE_NO_MEMORY:
+        raise MemoryError("zt_parse_frame")
+    if r < 0:
+        return int(r)
+    t = dict(zip(PARSE_TOTALS, totals.tolist()))
+    nseq = t["seqs"]
+    return dict(n=t["n"], pool_len=t["pool_len"], end=t["end"],
+                lanes=lanes[:t["lanes"]], lut_sym=lut_sym[:t["tables"]],
+                lut_len=lut_len[:t["tables"]], segs=segs[:t["segs"]],
+                host_pool=pool[:t["host_len"]].tobytes(),
+                ll=seqs[0, :nseq], ml=seqs[1, :nseq], off=seqs[2, :nseq])
