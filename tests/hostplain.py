@@ -18,12 +18,11 @@ import contextlib
 def _swaps():
     from zstd_tpu_torch import device_decoder, pipeline, xxhash64
     from zstd_tpu_torch.format import codec, frame, fse, huffman, sequences
-    from zstd_tpu_torch.parallel import zstdmt
     out = [(device_decoder, "_parse_frame", device_decoder._parse_frame_plain),
            (frame, "_split_points", frame._split_points_plain)]
     for mod in (frame, codec, device_decoder):
         out.append((mod, "decompress_frame", frame.decompress_frame_plain))
-    for mod in (xxhash64, frame, pipeline, zstdmt, device_decoder):
+    for mod in (xxhash64, frame, pipeline, device_decoder):
         out.append((mod, "content_checksum", xxhash64.content_checksum_plain))
     for mod, names in ((fse, ("normalize_count", "write_ncount",
                               "build_ctable", "fse_compress_2state")),

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import planform
 from tests.conftest import gen_mixed, gen_text
 from zstd_tpu import pipeline as jpipe
 from zstd_tpu.ops import seqextract
@@ -97,7 +98,7 @@ def test_analyze_resident_match(stage_a):
 @pytest.mark.parametrize("buffers", ["planned", "tiny"])
 def test_pack_header_and_prefix_match(stage_a, plan, buffers):
     *_, j_res, _, _ = stage_a
-    plans, blob, cap, ow_fse, seg_cap, ow_huf = plan
+    (rec, _), blob, cap, ow_fse, seg_cap, ow_huf = planform.port_form(plan)
     if buffers == "tiny":       # overflowing stream buffers: blocks go raw
         ow_fse, ow_huf = 8, 8
     r = j_res
@@ -110,8 +111,16 @@ def test_pack_header_and_prefix_match(stage_a, plan, buffers):
                                  seg_cap, ow_huf)
     j_sizes = np.asarray(j_sizes)
     np.testing.assert_array_equal(t_sizes.numpy(), j_sizes)
-    _, total = tpipe.TorchCompressor._region_metas(plans, j_sizes)
-    valid = len(plans) * 7 * 4 + total
+    offs, sizes, zeroed, total = tpipe.TorchCompressor._region_metas(
+        rec, blob, j_sizes)
+    # every piece's offset and size, as zstd_tpu places them
+    w_metas, w_total = jpipe.TpuCompressor._region_metas(plan[0], j_sizes)
+    assert total == w_total
+    assert zeroed.tolist() == [m["zeroed"] for m in w_metas]
+    assert np.stack([offs, sizes], axis=2).tolist() == \
+        [[list(m["fse"]), *map(list, m["huf"]), list(m["raw"])]
+         for m in w_metas]
+    valid = len(rec) * 7 * 4 + total
     np.testing.assert_array_equal(t_buf.numpy()[:valid],
                                   np.asarray(j_buf)[:valid])
     overflow = j_sizes[:, 5].astype(bool)

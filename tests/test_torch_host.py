@@ -19,6 +19,7 @@ import torch
 
 from gpubench import refdecode
 from gpubench.corpus import big_corpus as bench_corpus
+from tests import planform
 from tests.conftest import gen_mixed, gen_text
 from zstd_tpu import params as jparams
 from zstd_tpu import pipeline as jpipe
@@ -92,13 +93,29 @@ def test_sequences_header_from_hists(stats_and_lens, strategy):
                                               err_msg=f"{name}.{f}")
 
 
-def _lit_plan_fields(lp):
-    d = {k: getattr(lp, k) for k in ("kind", "single", "tree_desc",
-                                     "stream_sizes", "c_size", "n_lit",
-                                     "first_byte")}
-    if lp.ct is not None:
-        d["ct"] = (lp.ct.table_log, lp.ct.nb_bits.tolist(), lp.ct.value.tolist())
-    return d
+_LIT_FIELDS = ("kind", "single", "size0", "size1", "size2", "size3",
+               "c_size", "tree_len", "huf_log", "huf_max_symbol", "nb_lit")
+
+
+def _lit_plan_fields(got):
+    """The literal plan of a one-block batch of the port's planner (its
+    _build_plans result): the record's literal fields, the first literal
+    where the plan is RLE, the tree and the Huffman table."""
+    (rec, arena), blob = got[:2]
+    d = {k: int(rec[0, planform.COL[k]]) for k in _LIT_FIELDS}
+    d["first_byte"] = int(rec[0, planform.COL["first_lit"]]) \
+        if d["kind"] == planform.KINDS["rle"] else 0
+    off = int(rec[0, planform.COL["tree_off"]])
+    return d, arena[off:off + d["tree_len"]], planform.huf_table(rec[0],
+                                                                 blob[0])
+
+
+def _ref_lit_plan_fields(lp):
+    """The same of zstd_tpu's literal plan `lp`."""
+    d = dict.fromkeys(_LIT_FIELDS, 0)
+    d.update(planform.lit_fields(lp), nb_lit=lp.n_lit,
+             first_byte=lp.first_byte)
+    return d, lp.tree_desc, planform.ref_table(lp)
 
 
 def _stats_row(n_lit=0, h4=None, first_lit=0, seq=None):
@@ -120,11 +137,11 @@ def _stats_row(n_lit=0, h4=None, first_lit=0, seq=None):
 
 
 def _plan_one(n_lit, h4, first, strategy):
-    """The port's literal plan of one case, as a one-row batch."""
-    got = tpipe.TorchCompressor(device="cpu")._build_plans(
+    """The port's literal plan of one case, as a one-row batch
+    (_lit_plan_fields)."""
+    return _lit_plan_fields(tpipe.TorchCompressor(device="cpu")._build_plans(
         _stats_row(n_lit, h4, first)[None], np.array([N], np.int32),
-        strategy, N)
-    return got[0][0]["lit_plan"]
+        strategy, N))
 
 
 @pytest.mark.parametrize("strategy", [1, 2])
@@ -149,8 +166,8 @@ def test_plan_literals(stats_and_lens, strategy):
     kinds = set()
     for n_lit, h4, first in cases:
         want = jpipe.TpuCompressor()._plan_literals(n_lit, h4, first, strategy)
-        got = _plan_one(n_lit, h4, first, strategy)
-        assert _lit_plan_fields(got) == _lit_plan_fields(want)
+        assert _plan_one(n_lit, h4, first, strategy) == \
+            _ref_lit_plan_fields(want)
         kinds.add((want.kind, want.single))
     assert {k for k, _ in kinds} == {"raw", "rle", "huf"}
     assert ("huf", True) in kinds and ("huf", False) in kinds
@@ -292,16 +309,21 @@ def corpus():
 
 
 def _assert_plans_equal(got, want):
+    """The port's plans `got` equal zstd_tpu's `want` in the port's form:
+    the plan rows, cap and widths, every field of every block's record, the
+    arena of sequences headers and trees, and every Huffman table."""
     np.testing.assert_array_equal(got[1], want[1])       # the plan blob
     assert got[1].dtype == want[1].dtype
     assert got[2:] == want[2:]                           # cap and widths
-    assert len(got[0]) == len(want[0])
-    for g, w in zip(got[0], want[0]):
-        g, w = dict(g), dict(w)
-        assert _lit_plan_fields(g.pop("lit_plan")) == \
-            _lit_plan_fields(w.pop("lit_plan"))
-        assert g == w
-        assert [type(v) for v in g.values()] == [type(v) for v in w.values()]
+    (rec, arena), (w_rec, w_arena) = got[0], planform.records(want[0])
+    assert rec.dtype == w_rec.dtype and rec.shape == w_rec.shape
+    for name, col in planform.COL.items():
+        np.testing.assert_array_equal(rec[:, col], w_rec[:, col],
+                                      err_msg=name)
+    assert arena == w_arena
+    for j, p in enumerate(want[0]):
+        assert planform.huf_table(rec[j], got[1][j]) == \
+            planform.ref_table(p["lit_plan"]), j
 
 
 @pytest.mark.parametrize("strategy", [1, 3, 6, 9])
@@ -332,11 +354,12 @@ def test_crafted_rows_reach_every_gate_and_mode(crafted, strategy):
     stats, lens, _ = crafted
     kinds = {name: _plan_one(n, h4, first, strategy)
              for name, (n, h4, first) in _lit_rows().items()}
-    assert {k: lp.kind for k, lp in kinds.items()} == dict(
-        raw_count="raw", rle="rle", raw_flat="raw", raw_gain="raw",
-        gain_boundary="raw", huf_1="huf", huf_4="huf", tree_decline="raw",
-        stream_cap="raw")
-    assert kinds["huf_1"].single and not kinds["huf_4"].single
+    assert {k: lp[0]["kind"] for k, lp in kinds.items()} == {
+        k: planform.KINDS[v] for k, v in dict(
+            raw_count="raw", rle="rle", raw_flat="raw", raw_gain="raw",
+            gain_boundary="raw", huf_1="huf", huf_4="huf",
+            tree_decline="raw", stream_cap="raw").items()}
+    assert kinds["huf_1"][0]["single"] and not kinds["huf_4"][0]["single"]
     lits = _lit_rows()
     assert lits["raw_count"][0] < jlit._min_literals_to_compress(
         strategy, jlit.HufRepeat.NONE)
@@ -404,9 +427,9 @@ def test_a_batch_is_planned_in_one_host_call(corpus, monkeypatch):
         else:
             monkeypatch.setattr(tnative, name,
                                 counted(name, getattr(tnative, name)))
-    plans = tpipe.TorchCompressor(device="cpu")._build_plans(stats, lens, 1,
-                                                             bs)[0]
-    assert len(plans) == 32
+    rec, _ = tpipe.TorchCompressor(device="cpu")._build_plans(stats, lens, 1,
+                                                              bs)[0]
+    assert len(rec) == 32
     assert calls == dict(calls, plan_batch=1, zt_plan_batch=1) and \
         sum(calls.values()) == 2, calls
     calls.update(dict.fromkeys(calls, 0))
@@ -426,6 +449,7 @@ def test_frames_equal_with_the_reference_plans(level, monkeypatch):
     got = comp.compress(data)
     ref = jpipe.TpuCompressor()
     monkeypatch.setattr(tpipe.TorchCompressor, "_build_plans",
-                        lambda self, *a: ref._build_plans(*a))
+                        lambda self, *a: planform.port_form(
+                            ref._build_plans(*a)))
     assert comp.compress(data) == got
     assert refdecode.decode(got) == data

@@ -160,11 +160,11 @@ def test_refetch_runs_inside_fetch_wait(monkeypatch):
     plans_of = pipeline.TorchCompressor._build_plans
     batches = []
 
-    def low(self, *a, **k):
-        out = plans_of(self, *a, **k)
-        for p in out[0]:
-            p["est"] = 0 if not batches else p["blen"] + 16
-        batches.append(len(out[0]))
+    def low(self, stats, lens, *a, **k):
+        out = plans_of(self, stats, lens, *a, **k)
+        rec = out[0][0]
+        rec[:, pipeline._R_EST] = 0 if not batches else lens + 16
+        batches.append(len(rec))
         return out
 
     fetches = []

@@ -33,12 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import BLOCK_MAX_SIZE, BT_RAW, BT_RLE
+from ..constants import BLOCK_MAX_SIZE
 from ..format.frame import write_frame_header
 from ..ops.seqextract import extract_batch_xla
 from ..params import get_cparams
-from ..pipeline import TorchCompressor, _pack, stage_a_stats
-from ..xxhash64 import content_checksum
+from ..pipeline import TorchCompressor, _pack, stage_a_stats, write_blocks
 from .shard_compress import (ShardGroup, gather_bytes, gather_rows,
                              halo_rows, make_group)
 
@@ -84,15 +83,16 @@ def _analyze_sharded(blocks: torch.Tensor, lens: torch.Tensor,
     return stage_a_stats(res, lits, all_same)
 
 
-def _pack_sharded(resident: dict, blob: np.ndarray, plans: list, shape: tuple,
-                  device):
-    """Stage B of this rank's blocks: pack and compact them. Returns (the
-    tight compact bytes u8[total], sizes i32[b, 7])."""
+def _pack_sharded(resident: dict, blob: np.ndarray, rec: np.ndarray,
+                  shape: tuple, device):
+    """Stage B of this rank's blocks (their plan rows and records): pack and
+    compact them. Returns (the tight compact bytes u8[total], sizes
+    i32[b, 7])."""
     compact, sizes = _pack(resident, torch.from_numpy(blob).to(device),
                            *shape)
     sizes = sizes.cpu().numpy()
-    _, total = TorchCompressor._region_metas(plans, sizes)
-    hdr = len(plans) * 7 * 4
+    total = TorchCompressor._region_metas(rec, blob, sizes)[3]
+    hdr = len(rec) * 7 * 4
     return compact[hdr:hdr + total].cpu().numpy(), sizes
 
 
@@ -123,31 +123,26 @@ def compress_sharded(data: bytes, level: int = 1, checksum: bool = False,
         window_log += 1
     out = bytearray(write_frame_header(n, window_log, checksum))
     if n == 0:
-        out += (1 | (BT_RAW << 1)).to_bytes(3, "little")
-        if checksum:
-            out += content_checksum(b"").to_bytes(4, "little")
-        return bytes(out) if rank == 0 else None
+        frame = write_blocks(out, [], data, checksum)
+        return frame if rank == 0 else None
 
     nb_blocks = (n + block_size - 1) // block_size
     b_pad = -(-nb_blocks // world) * world
     rows = b_pad // world
-    mine = range(rank * rows, (rank + 1) * rows)
+    mine = slice(rank * rows, (rank + 1) * rows)
     arr = np.frombuffer(data, dtype=np.uint8)
-    lens = np.zeros(b_pad, dtype=np.int32)
-    for bi in range(nb_blocks):
-        lens[bi] = min(block_size, n - bi * block_size)
-    blocks = np.zeros((rows, block_size), dtype=np.uint8)
-    for j, bi in enumerate(mine):
-        s = bi * block_size
-        blocks[j, :lens[bi]] = arr[s:s + lens[bi]]
-    halo_ok = np.array([bi > 0 for bi in mine])   # frame start: no history
+    blocks, _ = TorchCompressor._batch_blocks(arr, n, mine.start, mine.stop,
+                                              block_size)
+    lens = np.clip(n - np.arange(b_pad) * block_size, 0,
+                   block_size).astype(np.int32)
+    halo_ok = np.arange(mine.start, mine.stop) > 0  # frame start: no history
 
     dev = group.device
     seq_cap = max(block_size // 4, 8)
     mls = min(max(cparams.min_match, 4), 8)
     stats, resident = _analyze_sharded(
         torch.from_numpy(blocks).to(dev),
-        torch.from_numpy(lens[rank * rows:(rank + 1) * rows]).to(dev),
+        torch.from_numpy(lens[mine]).to(dev),
         torch.from_numpy(halo_ok).to(dev), group, cparams.hash_log, mls,
         seq_cap, halo)
 
@@ -157,35 +152,16 @@ def compress_sharded(data: bytes, level: int = 1, checksum: bool = False,
     comp = TorchCompressor(level=level, checksum=checksum, device=dev)
     plans, blob, *shape = comp._build_plans(stats_all, lens, cparams.strategy,
                                             halo + block_size)
-    part, sizes = _pack_sharded(resident, blob[rank * rows:(rank + 1) * rows],
-                                plans[rank * rows:(rank + 1) * rows], shape,
+    part, sizes = _pack_sharded(resident, blob[mine], plans[0][mine], shape,
                                 dev)
     parts = gather_bytes(part, group)
     sizes = gather_rows(torch.from_numpy(sizes).to(dev), group).cpu().numpy()
     if rank != 0:
         return None
 
-    # in-order stitch (flushProduced analog)
-    metas, base = [], 0
-    for s in range(world):
-        m_s, total = TorchCompressor._region_metas(
-            plans[s * rows:(s + 1) * rows], sizes[s * rows:(s + 1) * rows])
-        for m in m_s:
-            metas.append(dict(zeroed=m["zeroed"],
-                              fse=(m["fse"][0] + base, m["fse"][1]),
-                              huf=[(o + base, z) for o, z in m["huf"]],
-                              raw=(m["raw"][0] + base, m["raw"][1])))
-        base += total
-    payloads = comp._finalize(plans, metas, np.concatenate(parts), arr, 0,
-                              block_size, cparams)[:nb_blocks]
-    for i, (payload, btype, blen) in enumerate(payloads):
-        last = i == len(payloads) - 1
-        if btype == BT_RLE:
-            bh = int(last) | (BT_RLE << 1) | (blen << 3)
-        else:
-            bh = int(last) | (btype << 1) | (len(payload) << 3)
-        out += bh.to_bytes(3, "little")
-        out += payload
-    if checksum:
-        out += content_checksum(data).to_bytes(4, "little")
-    return bytes(out)
+    # in-order stitch (flushProduced analog): the ranks' tight parts, end to
+    # end, hold the frame's pieces in block order
+    regions = TorchCompressor._region_metas(plans[0], blob, sizes)
+    payloads = comp._finalize(plans, lens, regions, np.concatenate(parts),
+                              arr, 0, block_size, cparams)[:nb_blocks]
+    return write_blocks(out, payloads, data, checksum)

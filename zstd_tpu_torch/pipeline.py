@@ -50,7 +50,6 @@ import torch
 from . import native
 from .constants import (BLOCK_MAX_SIZE, BT_COMPRESSED, BT_RAW, BT_RLE,
                         LBT_COMPRESSED, LBT_RAW, LBT_RLE, MIN_MATCH)
-from .format import huffman
 from .format.frame import write_frame_header
 from .format.literals import _min_gain
 from .ops.bitpack import bytes_of_words
@@ -84,8 +83,18 @@ _PB_LITRAW = _PB_SINGLE + 1
 _PB_HUFUSED = _PB_LITRAW + 1
 _PB_BLEN = _PB_HUFUSED + 1
 PLAN_LEN = _PB_BLEN + 1
-# the literal kinds of the batch planner's records (native.PLAN_FIELDS)
+# the columns of the batch planner's records that the host halves read, and
+# its literal kinds
+(_R_KIND, _R_SINGLE, _R_C_SIZE, _R_EST, _R_LAST_COUNT, _R_NB_SEQ, _R_NB_LIT,
+ _R_ALL_SAME, _R_FIRST_LIT, _R_HDR_OFF, _R_HDR_LEN, _R_TREE_OFF,
+ _R_TREE_LEN) = map(native.PLAN_FIELDS.index, (
+    "kind", "single", "c_size", "est", "last_count", "nb_seq", "nb_lit",
+    "all_same", "first_lit", "hdr_off", "hdr_len", "tree_off", "tree_len"))
 _LIT_RLE, _LIT_HUF = 1, 2
+
+# batches in flight: stage A of batch k is enqueued before batch
+# k - WINDOW + 1 is planned and batch k - WINDOW finished
+WINDOW = 3
 
 # the compact prefix is fetched in whole steps of this many bytes
 FETCH_STEP = 128 * 1024
@@ -247,18 +256,6 @@ def _seq_cap_bucket(max_seq: int) -> int:
     return 32768
 
 
-@dataclasses.dataclass
-class _LitPlan:
-    kind: str                 # 'raw' | 'rle' | 'huf'
-    single: bool = False
-    tree_desc: bytes = b""
-    stream_sizes: tuple = ()  # exact sizes (1 entry if single)
-    c_size: int = 0           # tree + (jump) + streams
-    ct: "huffman.HufCTable | None" = None
-    n_lit: int = 0
-    first_byte: int = 0
-
-
 def _lit_header(h_type: int, regen: int, c_size: int, single_stream: bool) -> bytes:
     lh_size = 3 + (regen >= 1024) + (regen >= 16384)
     if lh_size == 3:
@@ -289,6 +286,22 @@ def _rle_lit_section(n: int, byte: int) -> bytes:
     else:
         hdr = (LBT_RLE + (3 << 2) + (n << 4)).to_bytes(3, "little")
     return hdr + bytes([byte])
+
+
+def write_blocks(out: bytearray, payloads: list, data: bytes,
+                 checksum: bool) -> bytes:
+    """The frame from its header `out`: every block (payload, block type,
+    block length) behind its 3-byte header, the last one marked (an empty
+    input is one empty raw block), then the content checksum if asked."""
+    payloads = payloads or [(b"", BT_RAW, 0)]
+    for i, (payload, btype, blen) in enumerate(payloads):
+        size = blen if btype == BT_RLE else len(payload)
+        bh = int(i == len(payloads) - 1) | (btype << 1) | (size << 3)
+        out += bh.to_bytes(3, "little")
+        out += payload
+    if checksum:
+        out += content_checksum(data).to_bytes(4, "little")
+    return bytes(out)
 
 
 def _resolve_device(device) -> torch.device:
@@ -362,13 +375,15 @@ class TorchCompressor:
 
     @staticmethod
     def _batch_blocks(arr, n, bs, be, block_size):
+        """Blocks [bs, be) of the n-byte input `arr` as zero-padded rows
+        u8[be - bs, block_size] and their lengths i32[be - bs]; rows past
+        the input's end have length 0."""
+        s = bs * block_size
+        starts = s + np.arange(be - bs, dtype=np.int64) * block_size
+        lens = np.clip(n - starts, 0, block_size).astype(np.int32)
         blocks = np.zeros((be - bs, block_size), dtype=np.uint8)
-        lens = np.zeros(be - bs, dtype=np.int32)
-        for j, bi in enumerate(range(bs, be)):
-            s = bi * block_size
-            e = min(s + block_size, n)
-            blocks[j, : e - s] = arr[s:e]
-            lens[j] = e - s
+        m = int(lens.sum())
+        blocks.reshape(-1)[:m] = arr[s:s + m]
         return blocks, lens
 
     def _dispatch_a(self, arr, n, k, batch, block_size, cparams, prog=None):
@@ -396,9 +411,10 @@ class TorchCompressor:
 
     def _dispatch_b(self, stage_a, k, block_size, cparams, fetch, prog=None):
         """Batch k's stats waited for (stats_wait) and planned (plan), then
-        the plan blob pinned and uploaded, stage B enqueued and
-        fetch(plans, compact) started (stage_b). Returns (plans, compact,
-        what fetch returned, the pinned blob kept alive for its copy)."""
+        the plan rows pinned and uploaded, stage B enqueued and
+        fetch(plans, compact) started (stage_b). Returns (plans, plan rows,
+        lens, compact, what fetch returned, the pinned rows kept alive for
+        their copy)."""
         lens, stats_h, ev, resident, end, _ = stage_a
         t = _rec.on and _rec.begin("stats_wait", k)
         stats = self._wait(stats_h, ev)
@@ -418,7 +434,35 @@ class TorchCompressor:
         fetched = fetch(plans, compact)
         if t:
             _rec.end(t)
-        return plans, compact, fetched, keep
+        return plans, blob, lens, compact, fetched, keep
+
+    def _window(self, arr, n, batches, block_size, cparams, fetch, finish,
+                prog=None) -> list:
+        """The software pipeline over batches: stage A of batch k is
+        enqueued, then batch k - 2 is planned and its stage B enqueued with
+        fetch(plans, compact), then finish(k - 3, *what _dispatch_b
+        returned) runs; the tail plans the last two batches, then finishes
+        the last three. Returns what finish returned, in batch order."""
+        stage_a: dict[int, tuple] = {}
+        stage_b: dict[int, tuple] = {}
+        done = []
+
+        def plan(k):
+            stage_b[k] = self._dispatch_b(stage_a.pop(k), k, block_size,
+                                          cparams, fetch, prog)
+
+        for k in range(len(batches)):
+            stage_a[k] = self._dispatch_a(arr, n, k, batches[k], block_size,
+                                          cparams, prog)
+            if k >= WINDOW - 1:
+                plan(k - WINDOW + 1)
+            if k >= WINDOW:
+                done.append(finish(k - WINDOW, *stage_b.pop(k - WINDOW)))
+        for k in range(max(len(batches) - WINDOW + 1, 0), len(batches)):
+            plan(k)
+        for k in range(max(len(batches) - WINDOW, 0), len(batches)):
+            done.append(finish(k, *stage_b.pop(k)))
+        return done
 
     # -- entry points ----------------------------------------------------
     def compress(self, data: bytes) -> bytes:
@@ -440,64 +484,29 @@ class TorchCompressor:
         n = len(data)
         out = bytearray(write_frame_header(n, cparams.window_log, self.checksum))
         if n == 0:
-            out += (1 | (BT_RAW << 1)).to_bytes(3, "little")
-            if self.checksum:
-                out += content_checksum(b"").to_bytes(4, "little")
-            return bytes(out)
+            return write_blocks(out, [], data, self.checksum)
         GLOBAL_PROGRESSION.produced = len(out)
         arr = np.frombuffer(data, dtype=np.uint8)
 
-        # software pipeline over batches: stage A of batch k is enqueued,
-        # then batch k-2 is planned and its stage B enqueued (with its prefix
-        # fetch), then batch k-3 is assembled
-        WINDOW = 3
-        stage_a: dict[int, tuple] = {}
-        stage_b: dict[int, tuple] = {}
-        payloads: list[tuple[bytes, int, int]] = []
-
-        def plan(k):
-            stage_b[k] = self._dispatch_b(stage_a.pop(k), k, block_size,
-                                          cparams, self._start_fetch,
-                                          GLOBAL_PROGRESSION)
-
-        def finish(k):
-            plans, compact, fetch, _ = stage_b.pop(k)
+        def finish(k, plans, blob, lens, compact, fetched, _):
             t = _rec.on and _rec.begin("fetch_wait", k)
-            metas, streams = self._fetch_regions(plans, compact, *fetch)
+            regions, streams = self._fetch_regions(plans, blob, compact,
+                                                   *fetched)
             if t:
                 _rec.end(t)
             t = _rec.on and _rec.begin("finalize", k)
-            results = self._finalize(plans, metas, streams, arr,
+            results = self._finalize(plans, lens, regions, streams, arr,
                                      batches[k][0], block_size, cparams)
             if t:
                 _rec.end(t)
             GLOBAL_PROGRESSION.produced += sum(3 + len(r[0]) for r in results)
             return results
 
-        for k in range(len(batches)):
-            stage_a[k] = self._dispatch_a(arr, n, k, batches[k], block_size,
-                                          cparams, GLOBAL_PROGRESSION)
-            if k >= WINDOW - 1:
-                plan(k - WINDOW + 1)
-            if k >= WINDOW:
-                payloads += finish(k - WINDOW)
-        for k in range(max(len(batches) - WINDOW + 1, 0), len(batches)):
-            plan(k)
-        for k in range(max(len(batches) - WINDOW, 0), len(batches)):
-            payloads += finish(k)
-
+        done = self._window(arr, n, batches, block_size, cparams,
+                            self._start_fetch, finish, GLOBAL_PROGRESSION)
+        payloads = [r for results in done for r in results]
         t = _rec.on and _rec.begin("assemble")
-        for i, (payload, btype, blen) in enumerate(payloads):
-            last = i == len(payloads) - 1
-            if btype == BT_RLE:
-                bh = int(last) | (BT_RLE << 1) | (blen << 3)
-            else:
-                bh = int(last) | (btype << 1) | (len(payload) << 3)
-            out += bh.to_bytes(3, "little")
-            out += payload
-        if self.checksum:
-            out += content_checksum(data).to_bytes(4, "little")
-        out = bytes(out)
+        out = write_blocks(out, payloads, data, self.checksum)
         if t:
             _rec.end(t)
         return out
@@ -509,183 +518,139 @@ class TorchCompressor:
         Returns the total compressed payload bytes the device reports."""
         n = len(data)
         cparams, block_size, batches = self._setup(n)
-        if n == 0:
-            return 0
-        arr = np.frombuffer(data, dtype=np.uint8)
-        stage_a: dict[int, tuple] = {}
-        headers = []
-        WINDOW = 3
 
-        def plan(k):
-            plans, compact, (host, ev), keep = self._dispatch_b(
-                stage_a.pop(k), k, block_size, cparams,
-                lambda plans, compact:
-                    self._d2h(compact[: len(plans) * 7 * 4]))
-            headers.append((plans, host, ev, compact, keep))
+        def header(plans, compact):
+            return self._d2h(compact[: len(plans[0]) * 7 * 4])
 
-        for k in range(len(batches)):
-            stage_a[k] = self._dispatch_a(arr, n, k, batches[k], block_size,
-                                          cparams)
-            if k >= WINDOW - 1:
-                plan(k - WINDOW + 1)
-        for k in range(max(len(batches) - WINDOW + 1, 0), len(batches)):
-            plan(k)
-        total = 0
-        for plans, host, ev, _, _ in headers:
-            sizes = self._wait(host, ev).view(np.int32).reshape(len(plans), 7)
-            total += self._region_metas(plans, sizes)[1]
+        def total(k, plans, blob, lens, compact, fetched, _):
+            sizes = self._wait(*fetched).view(np.int32).reshape(len(lens), 7)
+            return self._region_metas(plans[0], blob, sizes)[3]
+
+        out = sum(self._window(np.frombuffer(data, dtype=np.uint8), n,
+                               batches, block_size, cparams, header, total))
         self._sync()
-        return total
+        return out
 
-    # -- host halves (copies of zstd_tpu/pipeline.py's) -------
+    # -- host halves ------------------------------------------------------
     def _build_plans(self, stats, lens, strategy, block_size):
         """Per-block entropy planning from the stats vectors alone: the
-        whole batch in one call of the host library (csrc/host/plan.c),
-        then each block's plan dict. Returns (plans, plan blob, cap,
-        out_w_fse, seg_cap, out_w_huf)."""
+        whole batch in one call of the host library (csrc/host/plan.c).
+        Returns (plans, plan rows, cap, out_w_fse, seg_cap, out_w_huf);
+        plans is (records int64[B, len(native.PLAN_FIELDS)], the arena of
+        sequences headers and Huffman trees they point into)."""
         blob, rec, arena = native.plan_batch(stats, lens, strategy, PLAN_LEN)
-        plans = []
-        for j, (kind, single, *sizes, c_size, est, last_count, nb_seq,
-                nb_lit, all_same, first_lit, hdr_off, hdr_len, tree_off,
-                tree_len, huf_log, max_symbol) in enumerate(rec.tolist()):
-            if kind == _LIT_HUF:
-                ct = huffman.HufCTable(huf_log, max_symbol,
-                                       blob[j, _PB_NBL:_PB_VAL].copy(),
-                                       blob[j, _PB_VAL:_PB_SINGLE].copy())
-                lp = _LitPlan("huf", single=bool(single),
-                              tree_desc=arena[tree_off:tree_off + tree_len],
-                              stream_sizes=tuple(sizes[:1 if single else 4]),
-                              c_size=c_size, ct=ct, n_lit=nb_lit)
-            elif kind == _LIT_RLE:
-                lp = _LitPlan("rle", n_lit=nb_lit, first_byte=first_lit)
-            else:
-                lp = _LitPlan("raw", n_lit=nb_lit)
-            plans.append(dict(blen=int(lens[j]), nb_seq=nb_seq, nb_lit=nb_lit,
-                              seq_header=arena[hdr_off:hdr_off + hdr_len],
-                              last_count=last_count, lit_plan=lp,
-                              all_same=bool(all_same), first_lit=first_lit,
-                              est=est))
-        cap = _seq_cap_bucket(max([1] + [p["nb_seq"] for p in plans]))
+        cap = _seq_cap_bucket(max(int(rec[:, _R_NB_SEQ].max(initial=0)), 1))
         # typical-density buffer sizing (overflow -> host raw fallback):
         # ~24 bits/sequence, ~10 bits/literal
         out_w_fse = (cap * 24) // 32 + 16
         seg_cap = (block_size + 3) // 4
         out_w_huf = (seg_cap * 10) // 32 + 4
-        return plans, blob, cap, out_w_fse, seg_cap, out_w_huf
+        return (rec, arena), blob, cap, out_w_fse, seg_cap, out_w_huf
 
     @staticmethod
-    def _region_metas(plans, sizes):
-        """Mirror the device-side piece gating into host offsets.
-        Returns (metas, total_bytes); `sizes` is the fetched [B, 7] array."""
-        metas = []
-        off = 0
-        for j, p in enumerate(plans):
-            lp = p["lit_plan"]
-            zeroed = bool(sizes[j, 6])
-            fse_sz = int(sizes[j, 0]) if (p["nb_seq"] and not zeroed) else 0
-            hs = []
-            for t in range(4):
-                used = (lp.kind == "huf") and (t == 0 or not lp.single) \
-                    and not zeroed
-                hs.append(int(sizes[j, 1 + t]) if used else 0)
-            raw_sz = p["nb_lit"] if (lp.kind == "raw" and not zeroed) else 0
-            entry = dict(fse=(off, fse_sz), zeroed=zeroed)
-            off += fse_sz
-            hofs = []
-            for t in range(4):
-                hofs.append((off, hs[t]))
-                off += hs[t]
-            entry["huf"] = hofs
-            entry["raw"] = (off, raw_sz)
-            off += raw_sz
-            metas.append(entry)
-        return metas, off
+    def _region_metas(rec, blob, sizes):
+        """The device's piece gating on the host, from the records, the plan
+        rows and the fetched [B, 7] sizes header, as _pack gates from
+        `fse_sz = ...` to `piece_sz = ...`. Returns (offsets int64[B, 6] and
+        sizes int64[B, 6] of the pieces fse, huf0-3 and raw in the compact
+        stream, zeroed bool[B], total bytes)."""
+        single = blob[:, _PB_SINGLE] > 0
+        lit_raw = blob[:, _PB_LITRAW] > 0
+        huf_used = blob[:, _PB_HUFUSED] > 0
+        huf_gate = huf_used[:, None] & ((np.arange(4) == 0) | ~single[:, None])
+        zeroed = sizes[:, 6] != 0
+        piece = np.concatenate([
+            np.where(rec[:, _R_NB_SEQ] > 0, sizes[:, 0], 0)[:, None],
+            np.where(huf_gate, sizes[:, 1:5], 0),
+            np.where(lit_raw, rec[:, _R_NB_LIT], 0)[:, None]],
+            axis=1).astype(np.int64) * ~zeroed[:, None]
+        end = np.cumsum(piece).reshape(piece.shape)
+        return end - piece, piece, zeroed, int(piece.sum())
 
     def _start_fetch(self, plans, compact):
         """Start the prefix fetch of the compact buffer, sized from the host
         estimate of the streams. Returns (host, event, prefix length)."""
-        hdr = len(plans) * 7 * 4
-        est_total = sum(p["est"] for p in plans)
+        rec = plans[0]
+        hdr = len(rec) * 7 * 4
+        est_total = int(rec[:, _R_EST].sum())
         step = FETCH_STEP
         nb = min(max(-(-(hdr + est_total) // step) * step, step),
                  int(compact.shape[0]))
         return (*self._d2h(compact[:nb]), nb)
 
-    def _fetch_regions(self, plans, compact, host, ev, nb):
+    def _fetch_regions(self, plans, blob, compact, host, ev, nb):
         """Wait for the prefix fetch; the [B, 7] sizes header at its head
         places the streams (re-fetched bigger if the estimate undershot,
-        which the device pre-gate makes rare)."""
-        hdr = len(plans) * 7 * 4
+        which the device pre-gate makes rare). Returns (_region_metas'
+        result, the streams)."""
+        rec = plans[0]
+        hdr = len(rec) * 7 * 4
         fetched = self._wait(host, ev)
-        sizes = fetched[:hdr].view(np.int32).reshape(len(plans), 7)
-        metas, total = self._region_metas(plans, sizes)
+        sizes = fetched[:hdr].view(np.int32).reshape(len(rec), 7)
+        regions = self._region_metas(rec, blob, sizes)
+        total = regions[3]
         if hdr + total > nb:
             fetched = compact[: hdr + total].cpu().numpy()
-        return metas, fetched[hdr: hdr + total]
+        return regions, fetched[hdr: hdr + total]
 
-    def _finalize(self, plans, metas, compact, arr, first_block, block_size,
-                  cparams: CParams):
+    def _finalize(self, plans, lens, regions, compact, arr, first_block,
+                  block_size, cparams: CParams):
+        """Each block of a batch as (payload, block type, block length),
+        from its record, the arena and its pieces in the fetched streams."""
+        rec, arena = plans
+        offs, sizes, zeroed, _ = regions
         strategy = cparams.strategy
         results = []
-        for j, p in enumerate(plans):
-            blen = p["blen"]
+        for j, (r, blen, o, z, zero) in enumerate(zip(
+                rec.tolist(), lens.tolist(), offs.tolist(), sizes.tolist(),
+                zeroed.tolist())):
             s = (first_block + j) * block_size
             src = arr[s : s + blen]
             raw = (src.tobytes(), BT_RAW, blen)
             if blen < MIN_MATCH + 1 + 8:
                 results.append(raw)
                 continue
-            m = metas[j]
-            if m["zeroed"]:
+            rle = (src[:1].tobytes(), BT_RLE, blen) \
+                if r[_R_ALL_SAME] and blen > 1 else raw
+            if zero:
                 # stream-buffer overflow, or the device's size pre-gate says
                 # this block cannot beat raw: store raw/RLE
-                if p["all_same"] and blen > 1:
-                    results.append((src[:1].tobytes(), BT_RLE, blen))
-                else:
-                    results.append(raw)
+                results.append(rle)
                 continue
-            lp = p["lit_plan"]
-            nb_lit = p["nb_lit"]
+            nb_lit = r[_R_NB_LIT]
 
-            if lp.kind == "huf":
-                streams = []
-                for t in range(4):
-                    o, sz = m["huf"][t]
-                    streams.append(compact[o : o + sz].tobytes())
-                if lp.single:
-                    payload_l = lp.tree_desc + streams[0]
+            if r[_R_KIND] == _LIT_HUF:
+                tree = arena[r[_R_TREE_OFF]:r[_R_TREE_OFF] + r[_R_TREE_LEN]]
+                streams = [compact[o[t] : o[t] + z[t]].tobytes()
+                           for t in range(1, 5)]
+                if r[_R_SINGLE]:
+                    payload_l = tree + streams[0]
                 else:
                     jump = b"".join(len(x).to_bytes(2, "little")
                                     for x in streams[:3])
-                    payload_l = lp.tree_desc + jump + b"".join(streams)
-                if len(payload_l) != lp.c_size:
+                    payload_l = tree + jump + b"".join(streams)
+                if len(payload_l) != r[_R_C_SIZE]:
                     results.append(raw)  # defensive
                     continue
-                lit_section = _lit_header(LBT_COMPRESSED, nb_lit, lp.c_size,
-                                          lp.single) + payload_l
-            elif lp.kind == "rle":
-                lit_section = _rle_lit_section(nb_lit, lp.first_byte)
+                lit_section = _lit_header(LBT_COMPRESSED, nb_lit,
+                                          r[_R_C_SIZE], r[_R_SINGLE]) \
+                    + payload_l
+            elif r[_R_KIND] == _LIT_RLE:
+                lit_section = _rle_lit_section(nb_lit, r[_R_FIRST_LIT])
             else:
-                o, sz = m["raw"]
                 lit_section = _raw_lit_header(nb_lit) + \
-                    compact[o : o + sz].tobytes()
+                    compact[o[5] : o[5] + z[5]].tobytes()
 
-            if p["nb_seq"]:
-                o, fse_nb = m["fse"]
-                bitstream = compact[o : o + fse_nb].tobytes()
-                if p["last_count"] and (p["last_count"] + fse_nb) < 4:
+            seq_section = arena[r[_R_HDR_OFF]:r[_R_HDR_OFF] + r[_R_HDR_LEN]]
+            if r[_R_NB_SEQ]:
+                if r[_R_LAST_COUNT] and (r[_R_LAST_COUNT] + z[0]) < 4:
                     results.append(raw)
                     continue
-                seq_section = p["seq_header"] + bitstream
-            else:
-                seq_section = p["seq_header"]
+                seq_section += compact[o[0] : o[0] + z[0]].tobytes()
 
             payload = lit_section + seq_section
             if len(payload) >= blen - _min_gain(blen, strategy):
-                if p["all_same"] and blen > 1:
-                    results.append((src[:1].tobytes(), BT_RLE, blen))
-                else:
-                    results.append(raw)
+                results.append(rle)
                 continue
             results.append((payload, BT_COMPRESSED, blen))
         return results
