@@ -34,7 +34,8 @@ def _moved(before: dict) -> dict:
 def recorded():
     """One call with recording on: its frame and spans, what COUNTS moved
     by, each block's bounds and window as find_long_matches saw them, and
-    the gaps the inner parser was handed."""
+    the gaps the inner parser was handed (or the block's one C call
+    parsed)."""
     blocks, gaps = [], []
     mp = pytest.MonkeyPatch()
     walk = tl.ShardedLdmState.find_long_matches
@@ -50,10 +51,24 @@ def recorded():
             return fn(full, gs, ge, *a, **k)
         return run
 
+    parse_block = tldm.GapTables.parse_block
+
+    def spy_block(self, full, b, e, wl, reps, cparams, longs):
+        """The gaps that the block's one C call parses: the non-empty
+        stretches between its long matches."""
+        gs = b
+        for pos, ln, _ in [*longs, (e, 0, 0)]:
+            if pos > gs:
+                gaps.append((gs, pos))
+            gs = pos + ln
+        return parse_block(self, full, b, e, wl, reps, cparams, longs)
+
     mp.setattr(tl.ShardedLdmState, "find_long_matches", spy_walk)
+    mp.setattr(tldm.GapTables, "parse_block", spy_block)
     for name in INNER:
         mp.setattr(tldm, name, spy_inner(getattr(tldm, name)))
     before = dict(tl.COUNTS)
+    before_gaps = dict(tldm.COUNTS)
     trace.take_spans()
     try:
         with trace.recording():
@@ -61,6 +76,8 @@ def recorded():
     finally:
         mp.undo()
     return dict(frame=frame, spans=trace.take_spans(), moved=_moved(before),
+                gaps_moved={k: tldm.COUNTS[k] - v
+                            for k, v in before_gaps.items()},
                 blocks=blocks, gaps=gaps)
 
 
@@ -97,8 +114,11 @@ def test_spans_nest_and_children_cover_the_root(recorded):
 def test_counts_equal_a_recount(recorded):
     """Anchors kept and long matches over every block, from a state built
     again; the long matches and the gaps the inner parser was handed cover
-    the input."""
+    the input; at level 3 one C call parsed each block's gaps
+    (format/ldm.COUNTS)."""
     moved, blocks = recorded["moved"], recorded["blocks"]
+    assert recorded["gaps_moved"] == {"c_blocks": len(blocks), "py_blocks": 0,
+                                      "gaps": len(recorded["gaps"])}
     window = blocks[0][2]
     full = np.frombuffer(DATA, dtype=np.uint8)
     state = tl.ShardedLdmState(full, window.bit_length() - 1, device="cpu")

@@ -95,6 +95,9 @@ _HOST_SIGNATURES = {
     "zt_lazy_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
                              _I, _I, _I, _I, _I, _I, _P, _P, _P, _I]),
     "zt_ldm_walk": (_I64, [_P, _L, _L, _L, _P, _P, _L, _L, _I, _L, _L, _P]),
+    "zt_ldm_gap_parse": (_I64, [_P, _L, _L, _L, _L, _P, _L, _P,
+                                _I, _I, _I, _I, _I, _I, _P, _P, _P, _L,
+                                _P, _P, _P, _L, _P, _P]),
     "zt_row_fill": (None, [_P, _L, _L, _I, _I, _I, _P, _P, _P, _P, _I]),
     "zt_row_parse": (_I64, [_P, _L, _L, _L, _P, _P, _P, _P, _L,
                             _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I]),

@@ -69,17 +69,39 @@ typedef struct {
        dfast's long table plays for the reference's dict fast paths) */
     int32_t* tlong;         /* [2<<hlog_long] 2-way buckets, -1 empty */
     int hlog_long;
+    /* optional undo log of a logged parse: one entry a table write, its
+       index from head (head, chain and tlong lie in one buffer, in that
+       order) << 32 | the value it overwrote */
+    uint64_t* log;
+    int64_t nlog;
 } LzCtx;
 
-static inline void lz_insert(LzCtx* c, int64_t pos) {
+#define LZ_INLINE static inline __attribute__((always_inline))
+
+LZ_INLINE void lz_log(LzCtx* c, const int32_t* slot) {
+    c->log[c->nlog++] = ((uint64_t)(slot - c->head) << 32)
+                        | (uint32_t)*slot;
+}
+
+/* `logged` is a constant at every call: the unlogged parse and fill
+   compile without the log */
+LZ_INLINE void lz_insert_at(LzCtx* c, int64_t pos, const int logged) {
     uint32_t h = lz_hash(c->base + pos, c->mls, c->hash_log);
-    c->chain[pos & c->chain_mask] = c->head[h];
+    int32_t* slot = &c->chain[pos & c->chain_mask];
+    if (logged) { lz_log(c, slot); lz_log(c, &c->head[h]); }
+    *slot = c->head[h];
     c->head[h] = (int32_t)pos;
     if (c->tlong) {
         uint32_t hl = lz_hash(c->base + pos, 8, c->hlog_long);
+        if (logged) { lz_log(c, &c->tlong[2 * hl + 1]);
+                      lz_log(c, &c->tlong[2 * hl]); }
         c->tlong[2 * hl + 1] = c->tlong[2 * hl];
         c->tlong[2 * hl] = (int32_t)pos;
     }
+}
+
+static inline void lz_insert(LzCtx* c, int64_t pos) {
+    lz_insert_at(c, pos, 0);
 }
 
 /* far candidates via the 8-byte bucket table; same contract as
@@ -162,27 +184,18 @@ void zt_lazy_fill_long(const uint8_t* base, int64_t from, int64_t to,
     }
 }
 
-int64_t zt_lazy_parse(const uint8_t* base, int64_t window_low,
-                      int64_t block_start, int64_t block_end,
-                      uint32_t* reps,
-                      int32_t* ll_out, int32_t* ob_out, int32_t* mb_out,
-                      int64_t seq_cap,
-                      int hash_log, int chain_log, int mls,
-                      int depth, int defer, int accel_log,
-                      int32_t* head_table, int32_t* chain_table,
-                      int32_t* table_long, int hlog_long)
+/* The parse loop of one block (or gap) [block_start, block_end) over the
+ * tables of c; reps (int64[3]) in and out. With `logged`, every table
+ * write goes to c->log first (zt_lazy_parse_logged). */
+LZ_INLINE int64_t lz_parse(LzCtx* c, int64_t block_start, int64_t block_end,
+                           int64_t* reps,
+                           int32_t* ll_out, int32_t* ob_out, int32_t* mb_out,
+                           int64_t seq_cap, int depth, int defer,
+                           int accel_log, const int logged)
 {
-    int64_t n = block_end - block_start;
-    if (n < 16) return 0;
-    if (mls < 4) mls = 4;
-    if (mls > 8) mls = 8;
-    if (depth < 1) depth = 1;
-    if (accel_log < 4) accel_log = 4;
-
-    LzCtx c = { base, head_table, chain_table,
-                (uint32_t)((1u << chain_log) - 1), hash_log, mls,
-                window_low, block_end, table_long, hlog_long };
-
+    if (block_end - block_start < 16) return 0;
+    const uint8_t* base = c->base;
+    int64_t window_low = c->window_low;
     int64_t ip = block_start;
     int64_t anchor = ip;
     int64_t rep0 = reps[0], rep1 = reps[1], rep2 = reps[2];
@@ -212,19 +225,19 @@ int64_t zt_lazy_parse(const uint8_t* base, int64_t window_low,
         }
         {
             int64_t csrc = -1;
-            int64_t cl = lz_search(&c, ip, depth, &csrc);
+            int64_t cl = lz_search(c, ip, depth, &csrc);
             if (cl >= 4) {
                 int64_t v = 4 * cl - lz_highbit((uint64_t)(ip - csrc));
                 if (v > val) { ml = cl; msrc = csrc; rcode = 0; val = v; }
             }
             int64_t fsrc = -1;
-            int64_t fl = lz_search_long(&c, ip, &fsrc);
+            int64_t fl = lz_search_long(c, ip, &fsrc);
             if (fl >= 8) {
                 int64_t v = 4 * fl - lz_highbit((uint64_t)(ip - fsrc));
                 if (v > val) { ml = fl; msrc = fsrc; rcode = 0; val = v; }
             }
         }
-        lz_insert(&c, ip);
+        lz_insert_at(c, ip, logged);
         if (ml < 4) {
             ip += 1 + ((ip - anchor) >> accel_log);
             continue;
@@ -247,13 +260,13 @@ int64_t zt_lazy_parse(const uint8_t* base, int64_t window_low,
             }
             {
                 int64_t csrc = -1;
-                int64_t cl = lz_search(&c, nip, depth, &csrc);
+                int64_t cl = lz_search(c, nip, depth, &csrc);
                 if (cl >= 4) {
                     int64_t v = 4 * cl - lz_highbit((uint64_t)(nip - csrc));
                     if (v > nval) { nml = cl; nsrc = csrc; nrcode = 0; nval = v; }
                 }
                 int64_t fsrc = -1;
-                int64_t fl = lz_search_long(&c, nip, &fsrc);
+                int64_t fl = lz_search_long(c, nip, &fsrc);
                 if (fl >= 8) {
                     int64_t v = 4 * fl - lz_highbit((uint64_t)(nip - fsrc));
                     if (v > nval) { nml = fl; nsrc = fsrc; nrcode = 0; nval = v; }
@@ -261,7 +274,7 @@ int64_t zt_lazy_parse(const uint8_t* base, int64_t window_low,
             }
             if (nml < 4) break;
             /* take the better start: the skipped byte joins the literals */
-            lz_insert(&c, nip);
+            lz_insert_at(c, nip, logged);
             ip = nip; mstart = nip; msrc = nsrc; ml = nml; rcode = nrcode;
             val = nval - 3;
             steps++;
@@ -293,7 +306,7 @@ int64_t zt_lazy_parse(const uint8_t* base, int64_t window_low,
         /* index every interior position: chain quality is what the lazy
            class buys its ratio with (head+chain make this O(1) each) */
         int64_t stop = next < ilimit ? next : ilimit;
-        for (int64_t j = ip + 1; j < stop; j++) lz_insert(&c, j);
+        for (int64_t j = ip + 1; j < stop; j++) lz_insert_at(c, j, logged);
         ip = next;
         anchor = next;
         /* zero-literal rep continuation (zstd_lazy.c match-end staple):
@@ -312,13 +325,78 @@ int64_t zt_lazy_parse(const uint8_t* base, int64_t window_low,
             int64_t t = rep0; rep0 = rep1; rep1 = t;
             int64_t e = ip + l;
             int64_t s2 = e < ilimit ? e : ilimit;
-            for (int64_t j = ip; j < s2; j++) lz_insert(&c, j);
+            for (int64_t j = ip; j < s2; j++) lz_insert_at(c, j, logged);
             ip = e;
             anchor = e;
         }
     }
-    reps[0] = (uint32_t)rep0;
-    reps[1] = (uint32_t)rep1;
-    reps[2] = (uint32_t)rep2;
+    reps[0] = rep0;
+    reps[1] = rep1;
+    reps[2] = rep2;
     return k;
+}
+
+int64_t zt_lazy_parse(const uint8_t* base, int64_t window_low,
+                      int64_t block_start, int64_t block_end,
+                      uint32_t* reps,
+                      int32_t* ll_out, int32_t* ob_out, int32_t* mb_out,
+                      int64_t seq_cap,
+                      int hash_log, int chain_log, int mls,
+                      int depth, int defer, int accel_log,
+                      int32_t* head_table, int32_t* chain_table,
+                      int32_t* table_long, int hlog_long)
+{
+    if (block_end - block_start < 16) return 0;
+    if (mls < 4) mls = 4;
+    if (mls > 8) mls = 8;
+    if (depth < 1) depth = 1;
+    if (accel_log < 4) accel_log = 4;
+
+    LzCtx c = { base, head_table, chain_table,
+                (uint32_t)((1u << chain_log) - 1), hash_log, mls,
+                window_low, block_end, table_long, hlog_long, NULL, 0 };
+    int64_t r[3] = { reps[0], reps[1], reps[2] };
+    int64_t k = lz_parse(&c, block_start, block_end, r, ll_out, ob_out,
+                         mb_out, seq_cap, depth, defer, accel_log, 0);
+    reps[0] = (uint32_t)r[0];
+    reps[1] = (uint32_t)r[1];
+    reps[2] = (uint32_t)r[2];
+    return k;
+}
+
+/* zt_lazy_parse with every table write logged (csrc/host/ldm.c's gap
+ * parse): head_table, chain_table and table_long lie in one buffer, in
+ * that order; log holds at least 4 entries a position of the block;
+ * *nlog is set to the entries written. reps int64[3], in and out.
+ * zt_lazy_undo plays the log back. */
+int64_t zt_lazy_parse_logged(const uint8_t* base, int64_t window_low,
+                             int64_t block_start, int64_t block_end,
+                             int64_t* reps,
+                             int32_t* ll_out, int32_t* ob_out,
+                             int32_t* mb_out, int64_t seq_cap,
+                             int hash_log, int chain_log, int mls,
+                             int depth, int defer, int accel_log,
+                             int32_t* head_table, int32_t* chain_table,
+                             int32_t* table_long, int hlog_long,
+                             uint64_t* log, int64_t* nlog)
+{
+    if (mls < 4) mls = 4;
+    if (mls > 8) mls = 8;
+    if (depth < 1) depth = 1;
+    if (accel_log < 4) accel_log = 4;
+    LzCtx c = { base, head_table, chain_table,
+                (uint32_t)((1u << chain_log) - 1), hash_log, mls,
+                window_low, block_end, table_long, hlog_long, log, 0 };
+    int64_t k = lz_parse(&c, block_start, block_end, reps, ll_out, ob_out,
+                         mb_out, seq_cap, depth, defer, accel_log, 1);
+    *nlog = c.nlog;
+    return k;
+}
+
+/* Put back, newest first, the table entries that a logged parse
+ * overwrote: the tables are again what they were before it. */
+void zt_lazy_undo(int32_t* head_table, const uint64_t* log, int64_t nlog)
+{
+    for (int64_t i = nlog - 1; i >= 0; i--)
+        head_table[log[i] >> 32] = (int32_t)(uint32_t)log[i];
 }

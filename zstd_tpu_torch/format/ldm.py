@@ -18,11 +18,12 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..constants import MIN_MATCH
 from ..trace import RECORDER as _rec
 from .lazy import _ext_fwd, _off_base
 from .matchfinder import update_reps
-from .opt import (chainlazy_fill, chainlazy_table_size,
+from .opt import (_chainlazy_shape, chainlazy_fill, chainlazy_table_size,
                   find_sequences_chainlazy, find_sequences_fast,
                   find_sequences_opt)
 from .sequences import SeqStore
@@ -30,6 +31,11 @@ from .sequences import SeqStore
 LDM_MIN_MATCH = 32          # minimum long-distance match length
 LDM_BUCKET = 4              # candidates kept per hash bucket
 _PRIME64 = np.uint64(0xCF1BBCDCB7A56463)
+_CHAINLAZY = (2, 3, 4, 5)   # the strategies whose gaps the chain-lazy C parses
+
+# blocks whose gaps one C call parsed, blocks on the per-gap loop, and the
+# gaps the C call parsed (empty ones left out)
+COUNTS = {"c_blocks": 0, "py_blocks": 0, "gaps": 0}
 
 
 class GapTables:
@@ -37,17 +43,24 @@ class GapTables:
 
     Each gap [gs, ge) is parsed on tables as a fresh fill over its window
     [wl, gs) leaves them. A fresh fill would index up to 1 MiB a gap;
-    instead `all` indexes every position from the frame's first window
-    low on, in order, extended as the gaps advance, and each gap parses a
-    copy of it. The copy differs from a fresh fill only in
-    entries below wl (where the fresh one holds -1 or an older position
-    below wl), and the parser takes no candidate below its window low
-    (lz_search stops at the first, lz_search_long skips them), so the
-    parse, its sequences and the frame are the same."""
+    instead `all` indexes every position of [start, upto), from the
+    frame's first window low on, in order, extended as the gaps advance.
+    It differs from a fresh fill only in entries below wl (where the
+    fresh one holds -1 or an older position below wl), and the parser
+    takes no candidate below its window low (lz_search stops at the
+    first, lz_search_long skips them), so the parse, its sequences and
+    the frame are the same.
+
+    `parse_block` parses all of a block's gaps in one C call
+    (csrc/host/ldm.c) on `all` itself: each gap's table writes go to an
+    undo log (`log`, kept from block to block) and are undone after it,
+    so `all` is again what the fill alone left. `at` is the plain
+    version: each gap parses a copy of `all` (`fast_table`)."""
 
     def __init__(self) -> None:
         self.all = None          # every position of [start, upto)
         self.fast_table = None   # the gap's copy (find_sequences_chainlazy)
+        self.log = None          # parse_block's undo log
         self.start = 0
         self.upto = 0
 
@@ -55,8 +68,8 @@ class GapTables:
         """Tables as a fresh fill over [wl, gs) would leave them, for the
         parser, in `fast_table`."""
         size = chainlazy_table_size(cparams)
-        if (self.all is None or len(self.all) != size or self.start > wl
-                or self.upto > max(gs - 7, self.start)):
+        if (self.all is None or len(self.all) != size or self.start < 0
+                or self.start > wl or self.upto > max(gs - 7, self.start)):
             self.all = np.full(size, -1, dtype=np.int32)
             self.fast_table = np.empty_like(self.all)
             self.start = self.upto = wl
@@ -65,6 +78,28 @@ class GapTables:
             self.upto = gs - 7
         np.copyto(self.fast_table, self.all)
         return self
+
+    def parse_block(self, full: np.ndarray, block_start: int,
+                    block_end: int, window_low: int, reps: tuple, cparams,
+                    longs: list) -> tuple[SeqStore, tuple, int]:
+        """The block's sequences, the gaps between its long matches parsed
+        as `_gap_parse_plain` parses them at strategies 2-5, in one C call:
+        (SeqStore, new reps, gaps parsed)."""
+        size = chainlazy_table_size(cparams)
+        if self.all is None or len(self.all) != size:
+            self.all = np.full(size, -1, dtype=np.int32)
+            self.start = self.upto = -1     # the first gap resets
+        need = 4 * (block_end - block_start)
+        if self.log is None or len(self.log) < need:
+            self.log = np.empty(need, dtype=np.uint64)
+        span = np.array([self.start, self.upto], dtype=np.int64)
+        ll, ob, mb, lits, r, gaps = native.ldm_gap_parse(
+            full, block_start, block_end, window_low,
+            min(1 << 20, 1 << cparams.window_log),
+            np.array(longs, dtype=np.int64), reps, _chainlazy_shape(cparams),
+            self.all, span, self.log)
+        self.start, self.upto = int(span[0]), int(span[1])
+        return SeqStore(ll, ob, mb, lits), r, gaps
 
 
 class LdmState:
@@ -165,19 +200,58 @@ class LdmState:
         return out
 
 
-def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
-                       window_low: int, reps: tuple, cparams,
-                       ldm: LdmState) -> tuple[SeqStore, tuple]:
-    """LDM-wrapped sequence extraction: long matches partition the block;
-    the inner strategy compresses the gaps. While trace.recording() is on:
-    spans `ldm_walk` (the long matches) and `gap_parse` (the rest)."""
+def _long_matches(ldm, block_start: int, block_end: int) -> list:
+    """The block's long matches, [(pos, length, dist), ...], in span
+    `ldm_walk`."""
     t = _rec.on and _rec.begin("ldm_walk")
     ldm.insert_upto(block_start)
     longs = ldm.find_long_matches(block_start, block_end)
     if t:
         _rec.end(t)
-    t = _rec.on and _rec.begin("gap_parse")
+    return longs
 
+
+def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
+                       window_low: int, reps: tuple, cparams,
+                       ldm: LdmState) -> tuple[SeqStore, tuple]:
+    """LDM-wrapped sequence extraction: long matches partition the block;
+    the inner strategy compresses the gaps. At the chain-lazy strategies
+    (2-5) one C call parses every gap of the block
+    (GapTables.parse_block), elsewhere the per-gap loop
+    (_gap_parse_plain); COUNTS counts which. While trace.recording() is
+    on: spans `ldm_walk` (the long matches) and `gap_parse` (the rest)."""
+    longs = _long_matches(ldm, block_start, block_end)
+    t = _rec.on and _rec.begin("gap_parse")
+    if cparams.strategy in _CHAINLAZY:
+        out, r, gaps = ldm.gap_tables.parse_block(
+            full, block_start, block_end, window_low, reps, cparams, longs)
+        COUNTS["c_blocks"] += 1
+        COUNTS["gaps"] += gaps
+    else:
+        out, r = _gap_parse_plain(full, block_start, block_end, window_low,
+                                  reps, cparams, ldm, longs)
+    if t:
+        _rec.end(t)
+    return out, r
+
+
+def find_sequences_ldm_plain(full: np.ndarray, block_start: int,
+                             block_end: int, window_low: int, reps: tuple,
+                             cparams, ldm: LdmState
+                             ) -> tuple[SeqStore, tuple]:
+    """find_sequences_ldm with the per-gap loop at every strategy: the
+    plain version of the one C call."""
+    longs = _long_matches(ldm, block_start, block_end)
+    return _gap_parse_plain(full, block_start, block_end, window_low, reps,
+                            cparams, ldm, longs)
+
+
+def _gap_parse_plain(full: np.ndarray, block_start: int, block_end: int,
+                     window_low: int, reps: tuple, cparams, ldm: LdmState,
+                     longs: list) -> tuple[SeqStore, tuple]:
+    """The level's parser over each gap between the long matches, the
+    long matches' sequences between them."""
+    COUNTS["py_blocks"] += 1
     # inner matcher window is capped: LDM owns the long range
     inner_window = min(1 << 20, 1 << cparams.window_log)
 
@@ -199,7 +273,7 @@ def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
         # has room for n / 4 + 16
         if cparams.strategy == 1:
             return find_sequences_fast(full, gs, ge, wl, r, cparams)
-        if cparams.strategy in (2, 3, 4, 5):
+        if cparams.strategy in _CHAINLAZY:
             res = find_sequences_chainlazy(
                 full, gs, ge, wl, r, cparams,
                 state=ldm.gap_tables.at(full, wl, gs, cparams))
@@ -232,6 +306,4 @@ def find_sequences_ldm(full: np.ndarray, block_start: int, block_end: int,
                    np.array(obs, dtype=np.int32),
                    np.array(mbs, dtype=np.int32),
                    b"".join(lit_parts))
-    if t:
-        _rec.end(t)
     return out, r

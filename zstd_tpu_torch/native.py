@@ -4,7 +4,8 @@ Copy of the methods of zstd_tpu/native.py's _Native that the port's host
 code calls, over the port's own copy of the C (built with the host C
 compiler at first use by _kernels.host()): the parsers and whole-frame
 encoders, the entropy planning and encoders, the block decoder and XXH64,
-the device encode's batch planner and the long-distance matcher's walk.
+the device encode's batch planner, and the long-distance matcher's walk and
+gap parse.
 The parsers take the whole input `full` (uint8) and absolute positions, and
 return (ll, ob, mb, new_reps): int32 literal lengths, spec Offset_Values
 and match lengths - 3. There is no fallback: without a C compiler every
@@ -127,6 +128,49 @@ def ldm_walk(full: np.ndarray, block_start: int, block_end: int,
         _ptr(full), len(full), block_start, block_end, _ptr(anchors),
         _ptr(cands), lo, hi, cands.shape[1], window, min_match, _ptr(out))
     return out[:k]
+
+
+def ldm_gap_parse(full: np.ndarray, block_start: int, block_end: int,
+                  window_low: int, inner_window: int, longs: np.ndarray,
+                  reps: tuple, shape: tuple, tables: np.ndarray,
+                  span: np.ndarray, log: np.ndarray):
+    """The gaps of one block between its long matches (int64[k, 3] rows of
+    (pos, length, dist)) parsed by the chain-lazy parse in one call, with
+    the long matches' sequences between them (format/ldm.find_sequences_ldm
+    at strategies 2-5). shape: (hash_log, chain_log, hlog_long, mls, depth,
+    defer); tables: the int32 head, chain and long tables in one buffer,
+    indexing [span[0], span[1]) (int64[2], updated in place; span[0] < 0
+    for new tables); log: a uint64 buffer of at least 4 entries a byte of
+    the block. Returns (ll, ob, mb, literals, new_reps, gaps parsed)."""
+    hash_log, chain_log, hlog_long, mls, depth, defer = shape
+    n = block_end - block_start
+    longs = np.ascontiguousarray(longs, dtype=np.int64).reshape(-1, 3)
+    if (len(tables) != (1 << hash_log) + (1 << chain_log) + (2 << hlog_long)
+            or tables.dtype != np.int32 or not tables.flags.c_contiguous
+            or log.dtype != np.uint64 or not log.flags.c_contiguous
+            or span.dtype != np.int64 or len(span) != 2):
+        raise ValueError("ldm_gap_parse: tables, span or log do not agree "
+                         "with the shape")
+    cap = n // 4 + 17 * (len(longs) + 1)
+    ll = np.empty(cap, dtype=np.int32)
+    ob = np.empty(cap, dtype=np.int32)
+    mb = np.empty(cap, dtype=np.int32)
+    lits = np.empty(max(n, 0), dtype=np.uint8)
+    reps_arr = np.array(reps, dtype=np.int64)
+    info = np.zeros(2, dtype=np.int64)
+    full = np.ascontiguousarray(full)
+    k = _kernels.host().zt_ldm_gap_parse(
+        _ptr(full), block_start, block_end, window_low, inner_window,
+        _ptr(longs), len(longs), _ptr(reps_arr), hash_log, chain_log,
+        hlog_long, mls, depth, defer, _ptr(tables), _ptr(span), _ptr(log),
+        len(log), _ptr(ll), _ptr(ob), _ptr(mb), cap, _ptr(lits), _ptr(info))
+    if k < 0:
+        raise ValueError("ldm_gap_parse: the long matches leave the block "
+                         "or overlap, or the log is short")
+    return (ll[:k], ob[:k], mb[:k],
+            lits[:info[0]].tobytes(),
+            (int(reps_arr[0]), int(reps_arr[1]), int(reps_arr[2])),
+            int(info[1]))
 
 
 def lazy_parse(full: np.ndarray, window_low: int, block_start: int,
