@@ -1,7 +1,7 @@
 """zstd_tpu_torch.parallel on the CPU: the one-frame sharded encode and the
-minimal sharded step in gloo process groups of world sizes 1 and 2 (spawned
-ranks, tests/torchdist.py), against zstd_tpu.parallel on meshes of the same
-size.
+minimal sharded step in gloo process groups of world sizes 1, 2 and 4
+(spawned ranks, tests/torchdist.py), against zstd_tpu.parallel on meshes of
+the same size.
 
 Frames must be byte-identical, except where zstd_tpu's frame is corrupt:
 its first block's backward extension reaches into the fabricated halo
@@ -22,7 +22,7 @@ from zstd_tpu.parallel import zstdmt as jz
 from zstd_tpu_torch.parallel import shard_compress as tshard
 from zstd_tpu_torch.parallel import zstdmt as tz
 
-WORLDS = (1, 2)
+WORLDS = (1, 2, 4)
 TEXT = gen_text(400_000, seed=11)
 CORPUS = gen_text(200_000, seed=11) + gen_mixed(200_000, seed=12)
 # inputs whose zstd_tpu frame refers to bytes before the frame's start
@@ -68,8 +68,8 @@ def test_frames_equal_jax(port, name, world):
 def test_empty_and_tiny(port, name):
     kw = FRAMES[name]
     frames = [port[w][name] for w in WORLDS]
-    assert frames[0] == frames[1] == jz.compress_sharded(
-        mesh=jshard.make_mesh(1), **kw)
+    assert frames == [jz.compress_sharded(mesh=jshard.make_mesh(1), **kw)] \
+        * len(WORLDS)
     assert zstd_tpu.decompress(frames[0]) == kw["data"]
 
 
@@ -83,7 +83,7 @@ def test_fabricated_halo_pins_reference_fault(port, name):
     with pytest.raises(Corruption, match="offset beyond window"):
         zstd_tpu.decompress(jax_frame)
     frames = [port[w][name] for w in WORLDS]
-    assert frames[0] == frames[1]
+    assert frames == [frames[0]] * len(WORLDS)
     assert zstd_tpu.decompress(frames[0]) == data
 
 

@@ -45,6 +45,9 @@ def _rank_main(rank: int, world: int, store: str, jobs: list,
                 if any(f.tobytes() != frame for f in every):
                     raise AssertionError(f"{name}: the ranks' frames differ")
                 results[name] = frame
+            elif kind == "traced":
+                results[name] = _traced_job(zstdmt, shard_compress, grp,
+                                            **kwargs)
             elif kind == "shard":
                 # index and count from the initialised default group
                 mine = multihost.compress_my_shard(**kwargs)
@@ -80,6 +83,57 @@ def _ldm_job(ldm_sharded, grp, data: bytes, window_log: int,
                          for b0 in range(0, n, block_size)])
 
 
+# the functions compress_sharded calls through zstdmt's globals, and how
+# often a call: the ring; stage A; the gathers of the stats and of the
+# parts' sizes; stage B and its pack; the parts' gather; rank 0's stitch
+PHASES = {"halo_rows": 1, "analyze_sharded": 1, "gather_rows": 2,
+          "_pack_sharded": 1, "_pack": 1, "gather_padded": 1, "stitch": 1}
+
+
+def _traced_job(zstdmt, shard_compress, grp, data: bytes, **kwargs) -> list:
+    """compress_sharded of `data` with recording off, then on, then with
+    every phase function of PHASES wrapped in the module: each rank's
+    frames of the three calls, the spans of the first (none) and of the
+    recorded one, what COUNTS moved by in it, the wrapped functions' calls
+    and the bytes of the parts gathered. Returns every rank's, in rank
+    order."""
+    import pickle
+
+    import numpy as np
+
+    from zstd_tpu_torch import trace
+    trace.take_spans()
+    off = zstdmt.compress_sharded(data, group=grp, **kwargs)
+    off_spans = trace.take_spans()
+    before = dict(zstdmt.COUNTS)
+    with trace.recording():
+        on = zstdmt.compress_sharded(data, group=grp, **kwargs)
+    spans = [tuple(s) for s in trace.take_spans()]
+    moved = {k: zstdmt.COUNTS[k] - v for k, v in before.items()}
+    calls, saved, part_bytes = {}, {}, []
+    for name in PHASES:
+        fn = saved[name] = getattr(zstdmt, name)
+
+        def run(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            out = _fn(*a, **k)
+            if _name == "gather_padded":
+                part_bytes.append(sum(out[1]))
+            return out
+        setattr(zstdmt, name, run)
+    try:
+        wrapped = zstdmt.compress_sharded(data, group=grp, **kwargs)
+    finally:
+        for name, fn in saved.items():
+            setattr(zstdmt, name, fn)
+    mine = dict(rank=grp.rank, frames=(off, on, wrapped), spans=spans,
+                off_spans=off_spans,
+                moved=moved, calls=calls, part_bytes=part_bytes)
+    every = shard_compress.gather_bytes(
+        np.frombuffer(pickle.dumps(mine), np.uint8), grp)
+    return [pickle.loads(b.tobytes()) for b in every]
+
+
 def run_groups(worlds, workdir: str, jobs: list) -> dict:
     """Run `jobs` ([(name, kind, kwargs)]) on one group of spawned gloo
     ranks per world size, all groups at once. Kinds: "frame"
@@ -90,7 +144,9 @@ def run_groups(worlds, workdir: str, jobs: list) -> dict:
     kwargs["shards"][rank]; rank 0 must get the list, the others None, and
     init_distributed() must return (rank, world)); "shard"
     (multihost.compress_my_shard with the group's rank and world; rank
-    0's result is every rank's shard in rank order).
+    0's result is every rank's shard in rank order); "traced"
+    (`_traced_job`: compress_sharded's frames, spans, COUNTS and phase
+    calls on every rank).
     Returns {world: {name: rank 0's result}}. Raises if a rank fails or the
     groups outlive JOIN_TIMEOUT."""
     os.makedirs(workdir, exist_ok=True)

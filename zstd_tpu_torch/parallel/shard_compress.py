@@ -107,15 +107,24 @@ def halo_rows(own: torch.Tensor, halo: int, grp: ShardGroup) -> torch.Tensor:
     return torch.cat([prev_tails, own], dim=1)
 
 
-def gather_bytes(data: np.ndarray, grp: ShardGroup) -> list[np.ndarray]:
-    """Every rank's u8 array (of any length), in rank order, on every rank:
-    the lengths first, then the arrays padded to the longest."""
-    n = torch.tensor([data.size], dtype=torch.int64, device=grp.device)
+def gather_padded(data: torch.Tensor,
+                  grp: ShardGroup) -> tuple[torch.Tensor, list[int]]:
+    """Every rank's u8 tensor on grp.device (of any length), in rank order,
+    on the device of every rank: (u8[world, longest], each padded to the
+    longest, their lengths). The lengths are gathered first."""
+    n = torch.tensor([data.numel()], dtype=torch.int64, device=grp.device)
     sizes = gather_rows(n, grp).cpu().tolist()
     buf = torch.zeros(max(sizes), dtype=torch.uint8, device=grp.device)
-    buf[:data.size] = torch.from_numpy(np.ascontiguousarray(data)).to(
-        grp.device)
-    rows = gather_rows(buf[None], grp).cpu().numpy()
+    buf[:data.numel()] = data
+    return gather_rows(buf[None], grp), sizes
+
+
+def gather_bytes(data: np.ndarray, grp: ShardGroup) -> list[np.ndarray]:
+    """Every rank's u8 array (of any length), in rank order, on every rank
+    (gather_padded, then to the host)."""
+    rows, sizes = gather_padded(
+        torch.from_numpy(np.ascontiguousarray(data)).to(grp.device), grp)
+    rows = rows.cpu().numpy()
     return [rows[i, :s] for i, s in enumerate(sizes)]
 
 

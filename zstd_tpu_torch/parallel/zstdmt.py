@@ -26,9 +26,23 @@ The frame is the same for every world size, and equals zstd_tpu's for the
 same mesh size except where zstd_tpu's frame is corrupt: in the frame's
 first block the backward extension here never reaches into the fabricated
 halo (see ops/seqextract.extract_batch_xla).
+
+While trace.recording() is on, a call is one span tree on each rank: the
+root `compress_sharded`, then `stage_in` (the rank's blocks cut and
+uploaded), `halo_exchange`, `stage_a`, `stats_gather`, `plan`, `stage_b`,
+`parts_gather` and, on rank 0, `finalize` and `assemble` (the stitch). The
+collectives (halo_rows, the ring; gather_rows, the all_gathers of the
+stats and of the parts' sizes; gather_padded, the parts'), stage A, stage
+B and rank 0's stitch are called through this module's globals, so that a
+caller can wrap each. Of the collectives only gather_padded waits for the
+device, for the parts' lengths; the copies of the stats and, on rank 0, of
+the parts to the host come after them. COUNTS counts each rank's work
+whether recording is on or not.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -38,10 +52,18 @@ from ..format.frame import write_frame_header
 from ..ops.seqextract import extract_batch_xla
 from ..params import get_cparams
 from ..pipeline import TorchCompressor, _pack, stage_a_stats, write_blocks
-from .shard_compress import (ShardGroup, gather_bytes, gather_rows,
+from ..trace import RECORDER as _rec
+from .shard_compress import (ShardGroup, gather_padded, gather_rows,
                              halo_rows, make_group)
 
 DEFAULT_HALO = 512   # floor: always at least the round-2 short halo
+
+# this rank's work since the process started: calls of compress_sharded;
+# the frame's blocks that its stage A ran (its own, with content); the halo
+# bytes in front of them (the context stage A reads besides the blocks); the
+# bytes it received in the stats and parts gathers (every block's stats
+# row and sizes row, every rank's part)
+COUNTS = {"calls": 0, "blocks": 0, "halo_bytes": 0, "gathered_bytes": 0}
 
 
 def overlap_size(strategy: int, window_log: int, overlap_log: int = 0) -> int:
@@ -64,14 +86,13 @@ def overlap_size(strategy: int, window_log: int, overlap_log: int = 0) -> int:
     return 1 << max(window_log - rlog, 0)
 
 
-def _analyze_sharded(blocks: torch.Tensor, lens: torch.Tensor,
-                     halo_ok: torch.Tensor, grp: ShardGroup, hash_log: int,
-                     mls: int, seq_cap: int, halo: int):
-    """Stage A of this rank's blocks: halo exchange, extract and stats.
-    blocks u8[b, n] (the rank's blocks, zero-padded), lens i32[b] content
-    lengths, halo_ok bool[b]. Returns (stats i32[b, 1152], resident dict),
-    as pipeline._analyze does."""
-    ext = halo_rows(blocks, halo, grp)
+def analyze_sharded(ext: torch.Tensor, lens: torch.Tensor,
+                    halo_ok: torch.Tensor, hash_log: int, mls: int,
+                    seq_cap: int, halo: int):
+    """Stage A of this rank's blocks behind their halos: extract and stats.
+    ext u8[b, halo + n] (halo_rows), lens i32[b] content lengths,
+    halo_ok bool[b]. Returns (stats i32[b, 1152], resident dict), as
+    pipeline._analyze does."""
     b, width = ext.shape
     emit_from = torch.full((b,), halo, dtype=torch.int32, device=ext.device)
     res = extract_batch_xla(ext, lens + halo, hash_log, mls, seq_cap,
@@ -87,13 +108,32 @@ def _pack_sharded(resident: dict, blob: np.ndarray, rec: np.ndarray,
                   shape: tuple, device):
     """Stage B of this rank's blocks (their plan rows and records): pack and
     compact them. Returns (the tight compact bytes u8[total], sizes
-    i32[b, 7])."""
+    i32[b, 7]), both on the device."""
     compact, sizes = _pack(resident, torch.from_numpy(blob).to(device),
                            *shape)
-    sizes = sizes.cpu().numpy()
-    total = TorchCompressor._region_metas(rec, blob, sizes)[3]
+    total = TorchCompressor._region_metas(rec, blob, sizes.cpu().numpy())[3]
     hdr = len(rec) * 7 * 4
-    return compact[hdr:hdr + total].cpu().numpy(), sizes
+    return compact[hdr:hdr + total], sizes
+
+
+def stitch(out: bytearray, comp: TorchCompressor, plans, blob: np.ndarray,
+           lens: np.ndarray, parts: list, sizes: np.ndarray, data: bytes,
+           nb_blocks: int, block_size: int, cparams) -> bytes:
+    """Rank 0's in-order stitch (zstdmt's flushProduced analog): the ranks'
+    tight parts, end to end, hold the frame's pieces in block order; the
+    blocks' payloads (span `finalize`), then the frame (span `assemble`)."""
+    t = _rec.on and _rec.begin("finalize")
+    regions = TorchCompressor._region_metas(plans[0], blob, sizes)
+    payloads = comp._finalize(plans, lens, regions, np.concatenate(parts),
+                              np.frombuffer(data, dtype=np.uint8), 0,
+                              block_size, cparams)[:nb_blocks]
+    if t:
+        _rec.end(t)
+    t = _rec.on and _rec.begin("assemble")
+    frame = write_blocks(out, payloads, data, comp.checksum)
+    if t:
+        _rec.end(t)
+    return frame
 
 
 def compress_sharded(data: bytes, level: int = 1, checksum: bool = False,
@@ -108,8 +148,21 @@ def compress_sharded(data: bytes, level: int = 1, checksum: bool = False,
     same for every world size. overlap_log mirrors ZSTD_c_overlapLog:
     0 = strategy default, 9 = a full window of cross-boundary context
     (capped at one block)."""
-    if group is None:
-        group = make_group(device)
+    root = _rec.on and _rec.begin_call("compress_sharded",
+                                       time.perf_counter_ns())
+    COUNTS["calls"] += 1
+    try:
+        if group is None:
+            group = make_group(device)
+        return _compress(data, level, checksum, group, overlap_log)
+    finally:
+        if root:
+            _rec.end(root)
+
+
+def _compress(data: bytes, level: int, checksum: bool, group: ShardGroup,
+              overlap_log: int) -> bytes | None:
+    """compress_sharded's body on this rank of `group`."""
     world, rank = group.world, group.rank
     n = len(data)
     cparams = get_cparams(level, n)
@@ -126,6 +179,7 @@ def compress_sharded(data: bytes, level: int = 1, checksum: bool = False,
         frame = write_blocks(out, [], data, checksum)
         return frame if rank == 0 else None
 
+    t = _rec.on and _rec.begin("stage_in")
     nb_blocks = (n + block_size - 1) // block_size
     b_pad = -(-nb_blocks // world) * world
     rows = b_pad // world
@@ -136,32 +190,56 @@ def compress_sharded(data: bytes, level: int = 1, checksum: bool = False,
     lens = np.clip(n - np.arange(b_pad) * block_size, 0,
                    block_size).astype(np.int32)
     halo_ok = np.arange(mine.start, mine.stop) > 0  # frame start: no history
-
     dev = group.device
+    blocks = torch.from_numpy(blocks).to(dev)
+    lens_d = torch.from_numpy(lens[mine]).to(dev)
+    halo_ok = torch.from_numpy(halo_ok).to(dev)
+    if t:
+        _rec.end(t)
+    own = max(min(mine.stop, nb_blocks) - mine.start, 0)
+    COUNTS["blocks"] += own
+    COUNTS["halo_bytes"] += own * halo
+
+    t = _rec.on and _rec.begin("halo_exchange")
+    ext = halo_rows(blocks, halo, group)
+    if t:
+        _rec.end(t)
+    t = _rec.on and _rec.begin("stage_a")
     seq_cap = max(block_size // 4, 8)
     mls = min(max(cparams.min_match, 4), 8)
-    stats, resident = _analyze_sharded(
-        torch.from_numpy(blocks).to(dev),
-        torch.from_numpy(lens[mine]).to(dev),
-        torch.from_numpy(halo_ok).to(dev), group, cparams.hash_log, mls,
-        seq_cap, halo)
+    stats, resident = analyze_sharded(ext, lens_d, halo_ok, cparams.hash_log,
+                                      mls, seq_cap, halo)
+    if t:
+        _rec.end(t)
 
     # every rank plans every block (the only ordered section, zstdmt's
     # serialState), then packs its own
+    t = _rec.on and _rec.begin("stats_gather")
     stats_all = gather_rows(stats, group).cpu().numpy()
+    if t:
+        _rec.end(t)
+    t = _rec.on and _rec.begin("plan")
     comp = TorchCompressor(level=level, checksum=checksum, device=dev)
     plans, blob, *shape = comp._build_plans(stats_all, lens, cparams.strategy,
                                             halo + block_size)
+    if t:
+        _rec.end(t)
+    t = _rec.on and _rec.begin("stage_b")
     part, sizes = _pack_sharded(resident, blob[mine], plans[0][mine], shape,
                                 dev)
-    parts = gather_bytes(part, group)
-    sizes = gather_rows(torch.from_numpy(sizes).to(dev), group).cpu().numpy()
+    if t:
+        _rec.end(t)
+    t = _rec.on and _rec.begin("parts_gather")
+    rows, lengths = gather_padded(part, group)
+    sizes = gather_rows(sizes, group)
+    COUNTS["gathered_bytes"] += stats_all.nbytes + sum(lengths) \
+        + sizes.numel() * sizes.element_size()
+    if rank == 0:      # only rank 0 stitches: the others leave theirs there
+        rows, sizes = rows.cpu().numpy(), sizes.cpu().numpy()
+    if t:
+        _rec.end(t)
     if rank != 0:
         return None
-
-    # in-order stitch (flushProduced analog): the ranks' tight parts, end to
-    # end, hold the frame's pieces in block order
-    regions = TorchCompressor._region_metas(plans[0], blob, sizes)
-    payloads = comp._finalize(plans, lens, regions, np.concatenate(parts),
-                              arr, 0, block_size, cparams)[:nb_blocks]
-    return write_blocks(out, payloads, data, checksum)
+    parts = [rows[i, :k] for i, k in enumerate(lengths)]
+    return stitch(out, comp, plans, blob, lens, parts, sizes, data,
+                  nb_blocks, block_size, cparams)
